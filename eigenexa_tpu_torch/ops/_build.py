@@ -1,0 +1,91 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``eigenexa_tpu_torch/csrc/`` are compiled with ``nvcc``
+into one shared library with a plain C interface and loaded with ``ctypes``
+(no PyTorch headers, so the build takes seconds).  The library lands in
+``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash of
+the sources and flags, at the first call of :func:`load_library` — never at
+import time.  A missing ``nvcc`` or a failed build raises with nvcc's
+output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD_ROOT = _PKG.parent / "build" / "kernels"
+_SOURCES = ("sub_matmul.cu",)
+_LIB_NAME = "libeigenexa_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LD = ctypes.c_longlong
+# (m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream) -> cudaError_t
+_SUB_MATMUL_ARGS = [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD, _P, _LD, _P]
+
+_lib = None
+build_seconds = None  # wall seconds of this process's nvcc run, if any
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: no CUDA toolkit (CUDA_HOME is "
+                           "unset and nvcc is not on PATH)")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(target: Path) -> None:
+    global build_seconds
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(_CSRC / s) for s in _SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr}{proc.stdout}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
+    build_seconds = time.perf_counter() - t0
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built from the checkout's sources on first use."""
+    global _lib
+    if _lib is None:
+        target = _BUILD_ROOT / _source_hash() / _LIB_NAME
+        if not target.exists():
+            _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name in ("eigenexa_sub_matmul_f32", "eigenexa_sub_matmul_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = _SUB_MATMUL_ARGS
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
