@@ -9,6 +9,15 @@
 //   * the large GEMM of every WY back-transform block,
 //     B = Z[k:, :], P = V, Q = (T * V^T Z)^T, k = nb_b (= 128), also in place.
 //
+// The window entry points at the end replace a second Pallas kernel,
+// `_sub_matmul_window_pallas` (public `rank2k_update_window`) of the same
+// file: the trailing update of the windowed reduction,
+// B[w:, w:] -= P[w:] * Q[w:]^T in place on one fixed working buffer.  On the
+// TPU that needed a kernel of its own (a grid over the window's tiles and an
+// output aliased onto B); here a window is a pointer offset plus the leading
+// dimension, so the same device code serves it and nothing outside the
+// window is addressed.  Its bound is the one below.
+//
 // What bounds it on an H100: at k = 128 in f32 the kernel does 2*k / 8 = 32
 // flop per byte of B traffic (B read once, OUT written once), above the
 // ~20 flop/B where 67 TFLOP/s of non-tensor FP32 meets 3.35 TB/s of HBM.  So
@@ -136,4 +145,24 @@ extern "C" int eigenexa_sub_matmul_f64(int m, int n, int k, const double* b,
                                        long long ldq, double* out,
                                        long long ldo, void* stream) {
   return launch<double>(m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream);
+}
+
+// Window entry points: B is (m, m), P and Q are (m, k), and only rows and
+// columns >= w take part: B[w:, w:] -= P[w:] * Q[w:]^T, in place.
+extern "C" int eigenexa_sub_matmul_window_f32(int m, int w, int k, float* b,
+                                              long long ldb, const float* p,
+                                              long long ldp, const float* q,
+                                              long long ldq, void* stream) {
+  float* win = b + w * ldb + w;
+  return launch<float>(m - w, m - w, k, win, ldb, p + w * ldp, ldp,
+                       q + w * ldq, ldq, win, ldb, stream);
+}
+
+extern "C" int eigenexa_sub_matmul_window_f64(int m, int w, int k, double* b,
+                                              long long ldb, const double* p,
+                                              long long ldp, const double* q,
+                                              long long ldq, void* stream) {
+  double* win = b + w * ldb + w;
+  return launch<double>(m - w, m - w, k, win, ldb, p + w * ldp, ldp,
+                        q + w * ldq, ldq, win, ldb, stream);
 }

@@ -2,7 +2,8 @@
 
 The sources under ``eigenexa_tpu_torch/csrc/`` are compiled with ``nvcc``
 into one shared library with a plain C interface and loaded with ``ctypes``
-(no PyTorch headers, so the build takes seconds).  The library lands in
+(no PyTorch headers, so the build takes seconds; one ``nvcc`` per source,
+all started together, then one link).  The library lands in
 ``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash of
 the sources and flags, at the first call of :func:`load_library` — never at
 import time.  A missing ``nvcc`` or a failed build raises with nvcc's
@@ -22,16 +23,25 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
-_SOURCES = ("sub_matmul.cu",)
+_SOURCES = ("sub_matmul.cu", "symv_lower.cu")
 _LIB_NAME = "libeigenexa_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LD = ctypes.c_longlong
-# (m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream) -> cudaError_t
-_SUB_MATMUL_ARGS = [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD, _P, _LD, _P]
+# every entry point returns cudaError_t as an int
+_ARGTYPES = {
+    # (m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream)
+    "eigenexa_sub_matmul": [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD, _P, _LD,
+                            _P],
+    # (m, w, k, b, ldb, p, ldp, q, ldq, stream)
+    "eigenexa_sub_matmul_window": [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD,
+                                   _P],
+    # (m, w, nc, b, ldb, x, ldx, q, ldq, scratch, stream)
+    "eigenexa_symv_lower": [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD, _P, _P],
+}
 
 _lib = None
 build_seconds = None  # wall seconds of this process's nvcc run, if any
@@ -60,18 +70,26 @@ def _source_hash() -> str:
 def _build(target: Path) -> None:
     global build_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(_CSRC / s) for s in _SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in _SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / src)]
+                for src, obj in zip(_SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        lib = str(Path(tmp) / _LIB_NAME)
+        cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])
+        results = [(p.communicate(), p.returncode) for p in procs]
+        if not any(rc for _, rc in results):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            results.append(((link.stdout, link.stderr), link.returncode))
+        for cmd, ((out, err), rc) in zip(cmds, results):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed (exit {rc}): "
+                                   f"{' '.join(cmd)}\n{err}{out}")
+        os.replace(lib, target)  # atomic: a concurrent loader sees all or none
     build_seconds = time.perf_counter() - t0
 
 
@@ -83,9 +101,10 @@ def load_library() -> ctypes.CDLL:
         if not target.exists():
             _build(target)
         lib = ctypes.CDLL(str(target))
-        for name in ("eigenexa_sub_matmul_f32", "eigenexa_sub_matmul_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = _SUB_MATMUL_ARGS
-            fn.restype = ctypes.c_int
+        for name, argtypes in _ARGTYPES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, name + suffix)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib

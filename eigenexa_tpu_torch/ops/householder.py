@@ -1,14 +1,26 @@
 """Blocked Householder tridiagonalization and compact-WY helpers (real
 symmetric).
 
-Counterpart of ``eigenexa_tpu/ops/householder.py`` (rolled path only).
-The reference's panel loop (src/eigen_trd.F:349) becomes a Python loop over
-panels on ONE working matrix: each panel factors ``nb`` columns of the live
-trailing block (a strided view), then the rank-2nb trailing update runs in
-place on the view ``A[k+nb:, k+nb:]`` through the hand-written
-``sub_matmul`` kernel (``ops/kernels.rank2k_update``).  The JAX package's
-scan bucketing and up-left roll exist only for XLA compile size and are
-not ported; the windowed reduction waits for ROADMAP A11.
+Counterpart of ``eigenexa_tpu/ops/householder.py``.  Two implementations
+of the reference's panel loop (src/eigen_trd.F:349), both a Python loop over
+panels on ONE working matrix:
+
+* **rolled**: each panel factors ``nb`` columns of the live trailing block
+  (a strided view), reading it with a full matvec; the rank-2nb trailing
+  update runs in place on the view ``A[k+nb:, k+nb:]`` through the
+  hand-written ``sub_matmul`` kernel (``ops/kernels.rank2k_update``).  The
+  reflectors go to a second n×n matrix.
+* **windowed**: rows keep their global indices in the fixed buffer.  A
+  window ``[t0·TM:, t0·TM:]`` that shrinks group by group bounds the work
+  to the live trailing block.  The panel matvec reads only the window's
+  lower triangle (``kernels.symv_lower``), the trailing update runs in
+  place on the window (``kernels.rank2k_update_window``), and each panel's
+  reflectors are stored in its own dead columns of the working matrix, so
+  the reduction needs one n×n buffer, as the reference does.
+
+The JAX package's scan bucketing, up-left roll, per-group jit, donation
+decorators and the padding of n to a multiple of TM exist only for XLA and
+the Pallas grid and are not ported.
 
 The panel recurrence reads the trailing block as it stood at panel start
 and corrects each column with the in-panel U and W; the in-place update
@@ -24,7 +36,17 @@ from typing import NamedTuple
 
 import torch
 
-from eigenexa_tpu_torch.ops.kernels import rank2k_update, wy_apply
+from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
+                                            rank2k_update_window, symv_lower,
+                                            wy_apply)
+
+# dispatch override for tridiagonalize(impl="auto"), settable by assignment:
+# "rolled" / "windowed" force; "auto" is rolled.  No memory rule picks the
+# windowed path yet: the D&C top merge sets the peak of the whole solve
+# (18.76·n²·4 bytes in f32, the input included, through either reduction;
+# NVIDIA H100 80GB HBM3, ``chip_smoke.py --findings``), so where the rolled
+# solve does not fit the windowed one does not either.
+TRD_IMPL = "auto"
 
 
 class TridiagResult(NamedTuple):
@@ -112,19 +134,8 @@ def _panel_diag(b, u_p, w_p, nb: int):
     return b.diagonal()[:nb] - 2.0 * (u_p[:nb] * w_p[:nb]).sum(dim=1)
 
 
-def tridiagonalize(a: torch.Tensor, nb: int = 64,
-                   donate: bool = False) -> TridiagResult:
-    """Reduce symmetric A (n×n) to tridiagonal T = Qᵀ·A·Q.
-
-    Q = H_0·H_1·…·H_{n-3}; reflector k is stored in column k of the
-    returned v.  Reference: src/eigen_trd.F:82.  With ``donate=True``
-    ``a`` is the working matrix and is destroyed (the solver passes its
-    scaled temporary); otherwise it is copied first.
-    """
-    if a.is_complex():
-        raise NotImplementedError("tridiagonalize: Hermitian input is "
-                                  "ROADMAP A13")
-    work = a if donate else a.clone()
+def _tridiagonalize_rolled(work: torch.Tensor, nb: int) -> TridiagResult:
+    """Rolled reduction; ``work`` is the working matrix and is destroyed."""
     n = work.shape[0]
     d = work.new_zeros((n,))
     e = work.new_zeros((max(n - 1, 1),))
@@ -157,6 +168,146 @@ def tridiagonalize(a: torch.Tensor, nb: int = 64,
     elif m == 1:
         d[k] = work[k, k]
     return TridiagResult(d=d, e=e[:n - 1], v=v_full, tau=tau_full)
+
+
+# ---------------------------------------------------------------------------
+# windowed (no-roll) reduction
+# ---------------------------------------------------------------------------
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _panel_win(b: torch.Tensor, j0: int, t0: int, nb: int):
+    """latrd panel recurrence in the fixed-buffer windowed frame: rows keep
+    their global indices, the panel's columns are j0 … j0+nb−1, the active
+    window is ``[t0·TM:, t0·TM:]``, and the matvec reads only the window's
+    lower triangle (``kernels.symv_lower``).
+
+    Rows of b above the current panel hold stale (already-processed) data,
+    and so do the columns between the window's start and j0.  Every vector
+    that could carry them into live values is cut: v is zero above its
+    pivot, and w is zeroed on rows < j0.  That also keeps the stale region
+    from being written, so staleness stays bounded by the original matrix
+    magnitude instead of compounding.  Rows [t0·TM, j0) of the matvec are
+    garbage by design and die in that cut.
+    """
+    n = b.shape[0]
+    u_p = b.new_zeros((n, nb))
+    w_p = b.new_zeros((n, nb))
+    tau_p = b.new_zeros((nb,))
+    e_p = b.new_zeros((nb,))
+    for jc in range(nb):
+        j = j0 + jc
+        col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
+        v, tau, beta = householder_vector(col, j + 1)
+        q = symv_lower(b, v, t0=t0)
+        q = q - u_p @ (w_p.T @ v) - w_p @ (u_p.T @ v)
+        w = tau * q - (tau * tau * 0.5) * torch.dot(v, q) * v
+        w[:j0] = 0
+        u_p[:, jc] = v
+        w_p[:, jc] = w
+        tau_p[jc] = tau
+        e_p[jc] = beta
+    return u_p, w_p, tau_p, e_p
+
+
+def _win_schedule(n: int, nb: int, group: int):
+    """Panel offsets per window group: group g covers offsets
+    [g·group, (g+1)·group); returns ({g: [offsets]}, first remainder k)."""
+    groups: dict = {}
+    k = 0
+    while n - k > nb:
+        groups.setdefault(k // group, []).append(k)
+        k += nb
+    return groups, k
+
+
+def _win_group_size(n: int, nb: int) -> int:
+    """Columns per window group: an eighth of the matrix, at least four
+    panels, in whole windows — the JAX package's rule, computed from n
+    rounded up to TM as there, so that both use the same window at every
+    panel."""
+    return _round_up(max(4 * nb, _round_up(n, WIN_TM) // 8), WIN_TM)
+
+
+def _tridiagonalize_windowed(b: torch.Tensor, nb: int) -> TridiagResult:
+    """No-roll reduction on ONE fixed (n, n) working buffer ``b``, which is
+    consumed and comes back as the result's v.
+
+    Panels advance down the diagonal in the global frame.  After a panel's
+    trailing update its (dead) columns are overwritten with the panel's
+    reflectors — the reference's scheme of factoring A in place and keeping
+    V in the zeroed-out part of the reduced matrix (src/eigen_trd.F:349;
+    src/eigen_trd_t7.F:72,208).  Later panels never read those columns as
+    data: the rank-2k delta there is exactly zero (both U and the j0-cut W
+    vanish on rows < j0), and the windowed matvec's reads of them only feed
+    rows that the recurrence cuts away.
+    """
+    n = b.shape[0]
+    d = b.new_zeros((n,))
+    e = b.new_zeros((max(n - 1, 1),))
+    tau_full = b.new_zeros((n,))
+
+    group = _win_group_size(n, nb)
+    groups, k = _win_schedule(n, nb, group)
+    for g in sorted(groups):
+        t0 = (g * group) // WIN_TM
+        for j0 in groups[g]:
+            u_p, w_p, tau_p, e_p = _panel_win(b, j0, t0, nb)
+            rows = slice(j0, j0 + nb)
+            d[rows] = (b.diagonal()[rows]
+                       - 2.0 * (u_p[rows] * w_p[rows]).sum(dim=1))
+            rank2k_update_window(b, u_p, w_p, t0=t0)
+            # store V in place of the just-processed (dead) panel columns
+            b[:, rows] = u_p
+            tau_full[rows] = tau_p
+            e[rows] = e_p
+
+    # remainder panel (m <= nb) on the live corner, which the full-square
+    # window update keeps current in both triangles
+    m = n - k
+    if m > 1:
+        b_rem = b[k:, k:]
+        u_p, w_p, tau_p, e_p = tridiag_panel(b_rem, m)
+        d[k:] = _panel_diag(b_rem, u_p, w_p, m)
+        e[k:k + m - 1] = e_p[:m - 1]
+        b[:k, k:] = 0
+        b[k:, k:] = u_p
+        tau_full[k:] = tau_p
+    elif m == 1:
+        d[k] = b[k, k]
+        b[:, k] = 0
+    return TridiagResult(d=d, e=e[:n - 1], v=b, tau=tau_full)
+
+
+def tridiagonalize(a: torch.Tensor, nb: int = 64, impl: str = "auto",
+                   donate: bool = False) -> TridiagResult:
+    """Reduce symmetric A (n×n) to tridiagonal T = Qᵀ·A·Q.
+
+    Q = H_0·H_1·…·H_{n-3}; reflector k is stored in column k of the
+    returned v.  Reference: src/eigen_trd.F:82.  With ``donate=True``
+    ``a`` is the working matrix and is destroyed (the solver passes its
+    scaled temporary); otherwise it is copied first.
+
+    ``impl`` is "rolled", "windowed" or "auto"; "auto" follows the module's
+    ``TRD_IMPL`` and, if that is "auto" too, is rolled.  The windowed
+    path returns its working matrix as v, so with ``donate=True`` it
+    allocates no second n×n buffer.
+    """
+    if a.is_complex():
+        raise NotImplementedError("tridiagonalize: Hermitian input is "
+                                  "ROADMAP A13")
+    if impl == "auto":
+        impl = TRD_IMPL
+    if impl == "auto":
+        impl = "rolled"
+    if impl not in ("rolled", "windowed"):
+        raise ValueError(f"tridiagonalize: unknown impl {impl!r}")
+    work = a if donate else a.clone(memory_format=torch.contiguous_format)
+    if impl == "windowed":
+        return _tridiagonalize_windowed(work, nb)
+    return _tridiagonalize_rolled(work, nb)
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,34 @@
-"""Fused subtract-matmul ``OUT = B − P·Qᴴ``: the port's kernel wrappers.
+"""The port's kernel wrappers: ``sub_matmul``, ``symv_lower`` and
+``rank2k_update_window``.
 
-Counterpart of ``eigenexa_tpu/ops/pallas_kernels.py`` (``sub_matmul``,
-``rank2k_update``, ``wy_apply``).  The kernel is hand-written CUDA for
-Hopper (``csrc/sub_matmul.cu``), built by ``ops/_build.py``.
+Counterpart of ``eigenexa_tpu/ops/pallas_kernels.py``.  Each kernel is
+hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
+``symv_lower.cu``), built by ``ops/_build.py``:
+
+* ``sub_matmul`` (with ``rank2k_update`` and ``wy_apply``): the fused
+  subtract-matmul ``OUT = B − P·Qᴴ`` of the rolled reduction's trailing
+  update and of every back-transform block;
+* ``symv_lower``: the panel matvec of the windowed reduction, reading only
+  the lower triangle of the window ``[t0·TM:, t0·TM:]``;
+* ``rank2k_update_window``: the windowed reduction's trailing update, in
+  place on the same window.
+
+``WIN_TM`` is the window granularity TM: a window starts at row and column
+``t0·TM``.  It says nothing about the kernels' own tiles, and a matrix edge
+need not be a multiple of it.
 
 Dispatch is by device, never by a fallback:
 
-* a CPU tensor takes the plain version ``_sub_matmul_ref`` (the parity
-  tests and the CPU solver run it);
+* a CPU tensor takes the plain version (``_sub_matmul_ref``,
+  ``_symv_lower_ref``, ``_rank2k_window_ref``); the parity tests and the
+  CPU solver run it;
 * a CUDA tensor launches the kernel, or raises on what the kernel does not
-  take (complex, other dtypes, non-unit column stride, bad aliasing).
+  take (complex, other dtypes, non-unit column stride, bad aliasing, more
+  than ``SYMV_MAX_NC`` vectors, a window that starts past the matrix).
 
-``LAUNCHES`` counts kernel launches (the main path's proof that it ran
-through the kernel); the plain version never touches it.
+``LAUNCHES`` counts wrapper calls that launched their kernel (the main
+path's proof that it ran through the kernels); a plain version never
+touches it.
 """
 
 from __future__ import annotations
@@ -21,10 +37,13 @@ import torch
 
 from eigenexa_tpu_torch.ops._build import load_library
 
-LAUNCHES = {"sub_matmul": 0}
+LAUNCHES = {"sub_matmul": 0, "symv_lower": 0, "rank2k_update_window": 0}
 
-_FN = {torch.float32: "eigenexa_sub_matmul_f32",
-       torch.float64: "eigenexa_sub_matmul_f64"}
+WIN_TM = 512       # window granularity TM of the windowed reduction
+SYMV_MAX_NC = 8    # most vectors one symv_lower call takes
+_SYMV_TILE = 64    # tile edge of csrc/symv_lower.cu (sizes its scratch)
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _sub_matmul_ref(b, p, q):
@@ -33,18 +52,35 @@ def _sub_matmul_ref(b, p, q):
     return b - p @ q.conj().T
 
 
-def _ld(x: torch.Tensor, name: str) -> int:
+def _ld(x: torch.Tensor, name: str, fn: str = "sub_matmul") -> int:
     """Leading dimension of a row-major (unit column stride) 2-D view."""
     rows, cols = x.shape
     if cols > 1 and x.stride(1) != 1:
-        raise ValueError(f"sub_matmul: {name} needs unit column stride, "
+        raise ValueError(f"{fn}: {name} needs unit column stride, "
                          f"got strides {tuple(x.stride())}")
     if rows <= 1:
         return max(cols, 1)
     if x.stride(0) < cols:
-        raise ValueError(f"sub_matmul: {name} rows overlap "
+        raise ValueError(f"{fn}: {name} rows overlap "
                          f"(strides {tuple(x.stride())}, shape {tuple(x.shape)})")
     return x.stride(0)
+
+
+def _check_kernel_dtype(fn: str, b: torch.Tensor) -> None:
+    """What every kernel refuses on a tensor that is not on the CPU."""
+    if b.is_complex():
+        raise NotImplementedError(
+            f"{fn}: complex on CUDA is the Hermitian path (ROADMAP A13)")
+    if b.dtype not in _SUFFIX:
+        raise TypeError(f"{fn}: no kernel for dtype {b.dtype}")
+    if b.device.type != "cuda":
+        raise NotImplementedError(
+            f"{fn}: no kernel for device {b.device.type!r}")
+
+
+def _raise_on(err: int, fn: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
 
 
 def _same_storage(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -81,14 +117,7 @@ def sub_matmul(b, p, q, out=None):
         if out is None:
             return r
         return out.copy_(r)
-    if b.device.type != "cuda":
-        raise NotImplementedError(
-            f"sub_matmul: no kernel for device {b.device.type!r}")
-    if b.is_complex():
-        raise NotImplementedError(
-            "sub_matmul: complex on CUDA is the Hermitian path (ROADMAP A13)")
-    if b.dtype not in _FN:
-        raise TypeError(f"sub_matmul: no kernel for dtype {b.dtype}")
+    _check_kernel_dtype("sub_matmul", b)
     if out is None:
         out = torch.empty_like(b, memory_format=torch.contiguous_format)
     m, n = b.shape
@@ -101,14 +130,12 @@ def sub_matmul(b, p, q, out=None):
         raise ValueError("sub_matmul: out must not share storage with P or Q")
     ldb, ldp, ldq, ldo = (_ld(b, "B"), _ld(p, "P"), _ld(q, "Q"),
                           _ld(out, "out"))
-    fn = getattr(load_library(), _FN[b.dtype])
+    fn = getattr(load_library(), "eigenexa_sub_matmul_" + _SUFFIX[b.dtype])
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(m, n, p.shape[1], b.data_ptr(), ldb, p.data_ptr(), ldp,
                  q.data_ptr(), ldq, out.data_ptr(), ldo, stream)
-    if err != 0:
-        raise RuntimeError(f"sub_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+    _raise_on(err, "sub_matmul")
     LAUNCHES["sub_matmul"] += 1
     return out
 
@@ -131,3 +158,129 @@ def wy_apply(z, v, t, out=None):
     s = v.conj().T @ z
     y = t @ s
     return sub_matmul(z, v, y.conj().T.contiguous(), out=out)
+
+
+# ---------------------------------------------------------------------------
+# windowed reduction: symmetric matvec on the lower triangle, and the
+# in-place trailing update of the window
+# ---------------------------------------------------------------------------
+
+def _window_start(fn: str, b: torch.Tensor, t0: int) -> int:
+    if b.ndim != 2 or b.shape[0] != b.shape[1]:
+        raise ValueError(f"{fn}: B must be square, got {tuple(b.shape)}")
+    w0 = t0 * WIN_TM
+    if t0 < 0 or w0 >= b.shape[0]:
+        raise ValueError(f"{fn}: window start t0·TM = {w0} lies outside "
+                         f"B{tuple(b.shape)}")
+    return w0
+
+
+def _symv_lower_ref(b, x, t0: int = 0):
+    """Plain PyTorch version of :func:`symv_lower`.  The symmetric window
+    is rebuilt from its lower triangle alone, so whatever the upper
+    triangle holds never reaches the result."""
+    w0 = t0 * WIN_TM
+    low = torch.tril(b[w0:, w0:])
+    full = low + torch.tril(low, diagonal=-1).T
+    q = torch.zeros_like(x)
+    q[w0:] = full @ x[w0:]
+    return q
+
+
+def symv_lower(b, x, t0: int = 0):
+    """``Q = B·X`` for symmetric B stored full, reading only the lower
+    triangle of the window ``[t0·TM:, t0·TM:]`` (TM = ``WIN_TM``).
+
+    B: (m, m), any m; X: (m,) or (m, nc) with nc ≤ ``SYMV_MAX_NC`` (the
+    band-2 pair recurrence passes nc = 2).  Returns a new tensor shaped
+    like X.  Rows above the window come back zero; inside the window row i
+    is Σ_j S[i, j]·X[j] over the window's columns only, S the window's
+    lower triangle mirrored.  The sum runs in a fixed order with no
+    atomics, so two calls on equal inputs are bitwise equal.
+    """
+    w0 = _window_start("symv_lower", b, t0)
+    m = b.shape[0]
+    if x.ndim not in (1, 2) or x.shape[0] != m:
+        raise ValueError(f"symv_lower: X{tuple(x.shape)} does not fit "
+                         f"B{tuple(b.shape)}")
+    nc = 1 if x.ndim == 1 else x.shape[1]
+    if not 1 <= nc <= SYMV_MAX_NC:
+        raise ValueError(f"symv_lower: takes 1 to {SYMV_MAX_NC} vectors, "
+                         f"got {nc}")
+    if b.device != x.device:
+        raise ValueError("symv_lower: operands on different devices")
+    if b.dtype != x.dtype:
+        raise TypeError("symv_lower: operands of different dtypes")
+    if b.device.type == "cpu":
+        return _symv_lower_ref(b, x, t0)
+    _check_kernel_dtype("symv_lower", b)
+    ldb = _ld(b, "B", "symv_lower")
+    ldx = x.stride(0) if x.ndim == 1 else _ld(x, "X", "symv_lower")
+    if ldx < 1:
+        raise ValueError(f"symv_lower: X needs a positive row stride, got "
+                         f"strides {tuple(x.stride())}")
+    q = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    mw = m - w0
+    tiles = -(-mw // _SYMV_TILE)
+    # partial sums, one slot per (source tile, vector, window row): each is
+    # written by exactly one block and summed in tile order by the second
+    # pass.  The buffer goes back to PyTorch's caching allocator when this
+    # function returns; whoever gets it next on this stream runs after the
+    # two passes.
+    scratch = torch.empty((tiles, nc, mw), dtype=x.dtype, device=x.device)
+    fn = getattr(load_library(), "eigenexa_symv_lower_" + _SUFFIX[b.dtype])
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(m, w0, nc, b.data_ptr(), ldb, x.data_ptr(), ldx,
+                 q.data_ptr(), nc, scratch.data_ptr(), stream)
+    _raise_on(err, "symv_lower")
+    LAUNCHES["symv_lower"] += 1
+    return q
+
+
+def _rank2k_window_ref(b, u, w, t0: int = 0):
+    """Plain PyTorch version of :func:`rank2k_update_window`: the two
+    rank-nb products on the window's view, in place."""
+    w0 = t0 * WIN_TM
+    win = b[w0:, w0:]
+    win.addmm_(u[w0:], w[w0:].T, alpha=-1)
+    win.addmm_(w[w0:], u[w0:].T, alpha=-1)
+    return b
+
+
+def rank2k_update_window(b, u, w, t0: int = 0):
+    """``B[w0:, w0:] −= U[w0:]·W[w0:]ᵀ + W[w0:]·U[w0:]ᵀ`` in place, with
+    w0 = t0·TM (TM = ``WIN_TM``): the windowed twin of
+    :func:`rank2k_update`.  Real only.
+
+    B: (m, m); U, W: (m, nb).  The whole window square is written;
+    everything outside it is left as it was.  Returns B.
+    """
+    w0 = _window_start("rank2k_update_window", b, t0)
+    m = b.shape[0]
+    if u.ndim != 2 or u.shape != w.shape or u.shape[0] != m:
+        raise ValueError(f"rank2k_update_window: U{tuple(u.shape)} "
+                         f"W{tuple(w.shape)} do not fit B{tuple(b.shape)}")
+    if len({t.device for t in (b, u, w)}) != 1:
+        raise ValueError("rank2k_update_window: operands on different "
+                         "devices")
+    if len({t.dtype for t in (b, u, w)}) != 1:
+        raise TypeError("rank2k_update_window: operands of different dtypes")
+    if b.device.type == "cpu":
+        return _rank2k_window_ref(b, u, w, t0)
+    _check_kernel_dtype("rank2k_update_window", b)
+    if _same_storage(b, u) or _same_storage(b, w):
+        raise ValueError("rank2k_update_window: B must not share storage "
+                         "with U or W")
+    ldb = _ld(b, "B", "rank2k_update_window")
+    p = torch.cat([u, w], dim=1)
+    q = torch.cat([w, u], dim=1)
+    fn = getattr(load_library(),
+                 "eigenexa_sub_matmul_window_" + _SUFFIX[b.dtype])
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(m, w0, p.shape[1], b.data_ptr(), ldb, p.data_ptr(),
+                 p.stride(0), q.data_ptr(), q.stride(0), stream)
+    _raise_on(err, "rank2k_update_window")
+    LAUNCHES["rank2k_update_window"] += 1
+    return b

@@ -13,6 +13,12 @@ reference's in-band telemetry (src/eigen_s.F:284-295).  Modes
 
 'N' and 'X' (Sturm bisection) and 'R' (stage data) are not ported yet
 (ROADMAP A10) and raise ``NotImplementedError``.
+
+The reduction is ``ops/householder.tridiagonalize`` with ``impl="auto"``:
+rolled, unless ``householder.TRD_IMPL`` forces the windowed one.  The
+scaled temporary is donated to it; the windowed
+reduction hands that same buffer back as the reflector matrix, so the
+stage holds one n×n buffer beside the caller's input.
 """
 
 from __future__ import annotations

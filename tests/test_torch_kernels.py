@@ -103,7 +103,12 @@ def test_cpu_tensors_never_count_launches():
     tk.sub_matmul(b, p, q, out=b)
     tk.rank2k_update(b, p, q)
     tk.wy_apply(b, p, t(_randn(4, 8, 8)))
+    tk.symv_lower(b, p[:, 0])
+    tk.symv_lower(b, p[:, :2])
+    tk.rank2k_update_window(b, p, q)
     assert tk.LAUNCHES == before
+    assert set(before) == {"sub_matmul", "symv_lower",
+                           "rank2k_update_window"}
 
 
 def test_wrapper_rejects_bad_operands_and_unknown_devices():
@@ -117,6 +122,108 @@ def test_wrapper_rejects_bad_operands_and_unknown_devices():
                   for s in ((8, 6), (8, 3), (6, 3)))
     with pytest.raises(NotImplementedError):
         tk.sub_matmul(mb, mp, mq)
+
+
+def _c_code(path: Path) -> str:
+    """A CUDA source without its // comments."""
+    return "\n".join(line.split("//")[0]
+                     for line in path.read_text().splitlines())
+
+
+def test_build_table_binds_every_entry_point():
+    """Every extern "C" function of every source under csrc/ is built and
+    gets its argument types (ctypes would otherwise cut a pointer to 32
+    bits), with one c_void_p or integer per C parameter."""
+    import ctypes
+    import re
+
+    from eigenexa_tpu_torch.ops import _build
+
+    csrc = REPO / "eigenexa_tpu_torch" / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(
+        _build._SOURCES)
+    found = {}
+    for src in _build._SOURCES:
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', _c_code(csrc / src)):
+            found[name] = [" ".join(p.split()) for p in params.split(",")]
+    bound = {name + sfx: args for name, args in _build._ARGTYPES.items()
+             for sfx in ("_f32", "_f64")}
+    assert set(found) == set(bound) and len(found) == 6
+    for name, params in found.items():
+        assert len(params) == len(bound[name]), name
+        for param, ctype in zip(params, bound[name]):
+            want = (ctypes.c_void_p if "*" in param else
+                    ctypes.c_longlong if param.startswith("long long")
+                    else ctypes.c_int)
+            assert ctype is want, (name, param)
+
+
+def test_symv_scratch_is_sized_for_the_kernels_tile():
+    """The wrapper allocates one scratch slot per (source tile, vector,
+    row); its tile edge must be the kernel's."""
+    import re
+
+    src = _c_code(REPO / "eigenexa_tpu_torch" / "csrc" / "symv_lower.cu")
+    (tile,) = re.findall(r"constexpr int kTile = (\d+);", src)
+    assert int(tile) == tk._SYMV_TILE
+
+
+def _fake_nvcc(tmp_path, fail_on=None):
+    """An nvcc stand-in that logs its arguments and creates its -o file."""
+    log = tmp_path / "nvcc.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {log}\n'
+        + (f'case "$*" in *{fail_on}*) echo "boom in {fail_on}" >&2; '
+           "exit 3;; esac\n" if fail_on else "")
+        + 'while [ $# -gt 0 ]; do if [ "$1" = "-o" ]; then touch "$2"; fi; '
+        "shift; done\n")
+    fake.chmod(0o755)
+    return fake, log
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    from eigenexa_tpu_torch.ops import _build
+
+    fake, log = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "build_seconds", None)
+    target = tmp_path / "out" / "abc" / _build._LIB_NAME
+    _build._build(target)
+    assert target.exists() and _build.build_seconds > 0
+    assert [p.name for p in target.parent.iterdir()] == [_build._LIB_NAME]
+    lines = log.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in ln]
+    links = [ln for ln in lines if " -shared " in ln]
+    assert len(compiles) == len(_build._SOURCES) and len(links) == 1
+    assert lines[-1] == links[0]                  # the link comes last
+    for src in _build._SOURCES:
+        assert sum(ln.endswith(src) for ln in compiles) == 1
+        assert src.replace(".cu", ".o") in links[0]
+    assert all("code=sm_90a" in ln for ln in lines)
+
+
+def test_build_failure_raises_with_nvccs_output(tmp_path, monkeypatch):
+    from eigenexa_tpu_torch.ops import _build
+
+    fake, log = _fake_nvcc(tmp_path, fail_on="symv_lower.cu")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "build_seconds", None)
+    target = tmp_path / "out" / "abc" / _build._LIB_NAME
+    with pytest.raises(RuntimeError, match="boom in symv_lower.cu"):
+        _build._build(target)
+    assert not target.exists() and _build.build_seconds is None
+    assert " -shared " not in log.read_text()     # nothing was linked
+    assert list(target.parent.iterdir()) == []    # and nothing left behind
+
+
+def test_kernel_sums_use_no_atomics():
+    """The bitwise-repeat contract: no kernel adds across blocks with
+    atomics, whose order changes from run to run."""
+    for path in (REPO / "eigenexa_tpu_torch" / "csrc").glob("*.cu"):
+        assert "atomic" not in _c_code(path).lower(), path
 
 
 def test_import_runs_no_nvcc(tmp_path):
