@@ -16,11 +16,17 @@ result line:
               version's time (CUDA events, median), the time of the one
               library call that computes the same (``library_ms``) and the
               least time the card could take (``bound_ms``):
-              ``sub_matmul`` at the main paths' shapes, a ragged shape and
-              an in-place strided view; ``symv_lower`` on a matrix whose
-              upper triangle holds garbage (zeros above the window, two
-              calls bitwise equal); ``rank2k_update_window`` (everything
-              outside the window bitwise untouched);
+              ``sub_matmul`` at the main paths' shapes, a ragged shape,
+              in-place strided views, and shapes that drive the f32
+              128-tile kernel through its edges (leading dimensions that
+              allow no 16-byte access, k = 5, 130 and 132, a square on
+              either side of the launch rule); ``symv_lower`` on a matrix
+              whose upper triangle holds garbage (zeros above the window,
+              two calls bitwise equal); ``rank2k_update_window``
+              (everything outside the window bitwise untouched); and
+              ``same_bits``: a large ``sub_matmul`` call against the same
+              product taken in row blocks, which the launch rule sends to
+              the other kernel of ``csrc/sub_matmul.cu``: bitwise equal;
 4. slice    — the rolled path: ``eigen_s(frank(8192, float32))`` cold, warm
               and with the stage split; checks residual, orthogonality, the
               scaled eigenvalue error, the kernel launch counts per solve
@@ -36,6 +42,11 @@ Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last three lines are the kernels JSON object, the
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --kernels`` stops after the kernel phases: device,
+build, what ptxas reports for every kernel (registers, spill, shared
+memory), the ``kernel`` lines with their checks and times, the
+``nvidia-smi`` line; no solve and no result line.
 
 Two more modes take findings, check nothing, and print no result line:
 
@@ -150,6 +161,12 @@ def _bound(dtype: str, elements: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
 
+def _product_err_bound(dtype: str, b, p, q, k: int) -> float:
+    """Bound on |kernel − plain| for B − P·Qᵀ over k terms."""
+    return ERR_C[dtype] * (float(b.abs().max())
+                           + k * float(p.abs().max()) * float(q.abs().max()))
+
+
 def _name(dtype) -> str:
     return str(dtype).split(".")[1]
 
@@ -196,74 +213,139 @@ def _report(row: dict, ok: bool, what: str) -> dict:
     return row
 
 
-def kernel_cases(n_main: int, n_win: int):
-    """(label, m, n, k, view offset or None) at the main paths' shapes:
-    the first rolled TRD trailing update (m = n = N − 64, k = 2·64), a
-    full WY block of the rolled path (m = n = N, k = 128) and of the
-    windowed path's size; a ragged case; an in-place strided view."""
+BIG = 4224          # a square well above the f32 launch rule: 33 x 33 tiles
+RULE_SQUARE = 1408  # 11 x 11 tiles of 128: just under one for each of 132 SMs
+
+
+def kernel_cases(n_main: int, n_win: int, big: int = BIG,
+                 rule: int = RULE_SQUARE):
+    """(label, m, n, k, view).  `view` None: B contiguous, a fresh output.
+    `view` (off, pad, kpad): B is ``buf[off:, off:off + n]`` of an
+    (off + m, off + n + pad) buffer and is updated in place, P and Q are
+    the first k columns of buffers k + kpad wide.
+
+    The main paths' shapes: the first rolled TRD trailing update (m = n =
+    N − 64, k = 2·64), a full WY block of the rolled path (m = n = N,
+    k = 128) and of the windowed path's size; a ragged case; an in-place
+    strided view.  Then what the f32 128-tile kernel has to get right at
+    its edges: a wide view whose last column quad straddles n, the same
+    with an odd leading dimension (no 16-byte access to B at all), k below
+    one K-slice, k one quad past a slice, k that ends inside a quad of a
+    16-byte-aligned row, and a square on either side of the launch rule."""
     return [
         ("rank2k", n_main - 64, n_main - 64, 128, None),
         ("wy", n_main, n_main, 128, None),
         ("wy_windowed_path", n_win, n_win, 128, None),
         ("ragged", 1000, 777, 100, None),
-        ("inplace_view", 1063, 1063, 128, 37),
+        ("inplace_view", 1063, 1063, 128, (37, 0, 0)),
+        ("wide_view", big - 24, big - 127, 128, (0, 103, 0)),
+        ("odd_ld_view", big - 24, big - 127, 128, (0, 104, 0)),
+        ("k5", big, big, 5, None),
+        ("k132", big, big, 132, None),
+        ("k130_of_132", big, big, 130, (0, 0, 2)),
+        ("under_rule", rule, rule, 128, None),
+        ("over_rule", rule + 1, rule + 1, 128, None),
     ]
 
 
-def kernel_phase(device, n_main: int, timed: bool, n_win: int = N_WINDOWED):
+def kernel_phase(device, n_main: int, timed: bool, n_win: int = N_WINDOWED,
+                 **sizes):
     """Compare sub_matmul with its plain version; returns one result row
-    per (case, dtype)."""
+    per (case, dtype).  `sizes` go to :func:`kernel_cases`."""
     import torch
     from eigenexa_tpu_torch.ops import kernels
 
     rows = []
     gen = torch.Generator(device=device).manual_seed(1234)
     for dtype in (torch.float32, torch.float64):
-        for label, m, n, k, off in kernel_cases(n_main, n_win):
+        for label, m, n, k, view in kernel_cases(n_main, n_win, **sizes):
             def rnd(*shape):
                 return torch.randn(*shape, generator=gen, dtype=dtype,
                                    device=device)
 
-            p, q = rnd(m, k), rnd(n, k)
-            if off is None:
+            if view is None:
+                p, q = rnd(m, k), rnd(n, k)
                 b = rnd(m, n)
                 ref = kernels._sub_matmul_ref(b, p, q)
                 out = kernels.sub_matmul(b, p, q)
                 outside_ok = True
             else:
-                big = rnd(m + off, n + off)
-                before = big.clone()
-                view = big[off:, off:]
+                off, pad, kpad = view
+                p, q = rnd(m, k + kpad)[:, :k], rnd(n, k + kpad)[:, :k]
+                buf = rnd(m + off, n + off + pad)
+                inside = torch.zeros_like(buf, dtype=torch.bool)
+                inside[off:, off:off + n] = True
+                before = buf[~inside]
+                view = buf[off:, off:off + n]
                 b = view.clone()
                 ref = kernels._sub_matmul_ref(view, p, q)
                 out = kernels.sub_matmul(view, p, q, out=view)
                 if out.data_ptr() != view.data_ptr():
                     raise AssertionError("in-place call did not write B")
-                outside_ok = (torch.equal(big[:off], before[:off])
-                              and torch.equal(big[:, :off], before[:, :off]))
+                outside_ok = torch.equal(buf[~inside], before)
+                del inside, before
             _sync(device)
             err = float((out - ref).abs().max())
             del out, ref
-            bound = ERR_C[_name(dtype)] * (
-                float(b.abs().max())
-                + k * float(p.abs().max()) * float(q.abs().max()))
+            bound = _product_err_bound(_name(dtype), b, p, q, k)
             row = {"name": "sub_matmul", "case": label,
                    "dtype": _name(dtype), "m": m, "n": n, "k": k,
                    "max_abs_err": err, "bound": bound}
             if timed:
-                o = torch.empty_like(b)
+                # a view is timed as it is, in place: eleven updates of
+                # N(0,1) data stay finite
+                tb = b if view is None else view
+                o = torch.empty_like(b) if view is None else view
                 row["ms"] = _time_ms(
-                    lambda: kernels.sub_matmul(b, p, q, out=o), device)
+                    lambda: kernels.sub_matmul(tb, p, q, out=o), device)
                 row["plain_ms"] = _time_ms(
-                    lambda: kernels._sub_matmul_ref(b, p, q), device)
+                    lambda: kernels._sub_matmul_ref(tb, p, q), device)
                 row["library_ms"] = _time_ms(
-                    lambda: torch.addmm(b, p, q.T, alpha=-1, out=o), device)
+                    lambda: torch.addmm(tb, p, q.T, alpha=-1, out=o), device)
                 row.update(_bound(_name(dtype), 2 * m * n + (m + n) * k,
                                   2.0 * m * n * k))
-                del o
+                del o, tb
             rows.append(_report(row, err <= bound and outside_ok,
                                 f"disagrees with its plain version (outside "
                                 f"view untouched: {outside_ok})"))
+    return rows
+
+
+def same_bits_phase(device, big: int = BIG, block: int = 384):
+    """A large sub_matmul call against the same product taken in blocks of
+    `block` rows.  In f32 on the card the launch rule sends the whole call
+    to the 128-tile kernel and each block to the 64-tile kernel, and both
+    sum over k in one order, so the two results must be bitwise equal.
+    The plain versions of a CPU tensor promise no such thing: there only
+    the error bound is held.  Returns one result row per case."""
+    import torch
+    from eigenexa_tpu_torch.ops import kernels
+
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(3412)
+    for label, m, n, k, ld in (("same_bits", big, big, 128, big),
+                               ("same_bits_odd_ld", big - 24, big - 127,
+                                100, big - 23)):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, dtype=torch.float32,
+                               device=device)
+
+        b, p, q = rnd(m, ld)[:, :n], rnd(m, k), rnd(n, k)
+        whole = kernels.sub_matmul(b, p, q)
+        blocks = torch.empty_like(whole)
+        for r0 in range(0, m, block):
+            kernels.sub_matmul(b[r0:r0 + block], p[r0:r0 + block], q,
+                               out=blocks[r0:r0 + block])
+        _sync(device)
+        equal = bool(torch.equal(whole, blocks))
+        err = float((whole - blocks).abs().max())
+        bound = _product_err_bound("float32", b, p, q, k)
+        row = {"name": "sub_matmul", "case": label, "dtype": "float32",
+               "m": m, "n": n, "k": k, "block_rows": block,
+               "max_abs_err": err, "bound": bound, "bitwise_equal": equal}
+        rows.append(_report(
+            row, equal if device.type == "cuda" else err <= bound,
+            "whole and in row blocks: the two kernels give other bits"))
     return rows
 
 
@@ -333,9 +415,12 @@ def symv_phase(device, m_main: int, timed: bool):
 
 def rank2k_window_cases(m_main: int):
     """(label, m, t0): the first panel of the windowed path, a window
-    further down, a ragged size; k = 2·64."""
+    further down, a ragged size; then two windows large enough for the f32
+    128-tile kernel whose edge is no multiple of its tile, one of them with
+    an odd leading dimension; k = 2·64."""
     return [("first_panel", m_main, 0), ("window", m_main, 8),
-            ("ragged", 1837, 1)]
+            ("ragged", 1837, 1), ("ragged_large", 4500, 1),
+            ("odd_ld_large", 4501, 1)]
 
 
 def rank2k_window_phase(device, m_main: int, timed: bool):
@@ -358,9 +443,7 @@ def rank2k_window_phase(device, m_main: int, timed: bool):
                                    device=device)
 
             b, u, w = rnd(m, m), rnd(m, nb), rnd(m, nb)
-            bound = ERR_C[_name(dtype)] * (
-                float(b.abs().max())
-                + 2 * nb * float(u.abs().max()) * float(w.abs().max()))
+            bound = _product_err_bound(_name(dtype), b, u, w, 2 * nb)
             keep = b.clone()
             out = kernels.rank2k_update_window(b, u, w, t0=t0)
             if out is not b:
@@ -702,13 +785,21 @@ def main() -> int:
         print(gpu)
         return 0
 
+    only_kernels = sys.argv[1:2] == ["--kernels"]
+    if only_kernels:
+        print(_build.resource_usage(), flush=True)
+
     rows = _timed_phase("kernels sub_matmul", kernel_phase, device, N_SLICE,
                         True)
+    rows += _timed_phase("kernels same_bits", same_bits_phase, device)
     rows += _timed_phase("kernels symv_lower", symv_phase, device,
                          N_WINDOWED, True)
     rows += _timed_phase("kernels rank2k_update_window",
                          rank2k_window_phase, device, N_WINDOWED, True)
     torch.cuda.empty_cache()
+    if only_kernels:
+        print(gpu)
+        return 0
     rolled, rolled_peak = _timed_phase("slice", slice_phase, device, N_SLICE)
     _timed_phase("f64", f64_phase, device, N_F64)
     windowed, windowed_peak = _timed_phase("windowed", windowed_phase,

@@ -1,50 +1,100 @@
 // OUT = B - P * Q^T with the subtract fused into the product: one pass over B.
 //
-// Replaces the Pallas TPU kernel `_sub_matmul_pallas` (body
-// `_sub_matmul_kernel`) of eigenexa_tpu/ops/pallas_kernels.py.  Two callers
-// on the eigen_s path go through it:
-//   * the rank-2k trailing update of every Householder panel,
-//     B = A[k+nb:, k+nb:], P = [U W], Q = [W U], k = 2*nb (= 128), updated
-//     IN PLACE on the strided view of the working matrix (OUT == B);
-//   * the large GEMM of every WY back-transform block,
-//     B = Z[k:, :], P = V, Q = (T * V^T Z)^T, k = nb_b (= 128), also in place.
+// Replaces two Pallas TPU kernels of eigenexa_tpu/ops/pallas_kernels.py:
+//   * `_sub_matmul_pallas` (body `_sub_matmul_kernel`, public `sub_matmul`),
+//     through the entry points eigenexa_sub_matmul_*.  Two callers on the
+//     eigen_s path: the rank-2k trailing update of every Householder panel of
+//     the rolled reduction (B = A[k+nb:, k+nb:], P = [U W], Q = [W U],
+//     k = 2*nb = 128, IN PLACE on the strided view of the working matrix,
+//     OUT == B), and the large product of every WY back-transform block
+//     (B = Z[k:, :], P = V, Q = (T * V^T Z)^T, k = 128, also in place);
+//   * `_sub_matmul_window_pallas` (public `rank2k_update_window`), through
+//     the entry points eigenexa_sub_matmul_window_*: the trailing update of
+//     the windowed reduction, B[w:, w:] -= P[w:] * Q[w:]^T in place on one
+//     fixed working buffer.  On the TPU that was a kernel of its own (a grid
+//     over the window's tiles, the output aliased onto B); here a window is a
+//     pointer offset plus the leading dimension, so the same device code
+//     serves it and nothing outside the window is addressed.
 //
-// The window entry points at the end replace a second Pallas kernel,
-// `_sub_matmul_window_pallas` (public `rank2k_update_window`) of the same
-// file: the trailing update of the windowed reduction,
-// B[w:, w:] -= P[w:] * Q[w:]^T in place on one fixed working buffer.  On the
-// TPU that needed a kernel of its own (a grid over the window's tiles and an
-// output aliased onto B); here a window is a pointer offset plus the leading
-// dimension, so the same device code serves it and nothing outside the
-// window is addressed.  Its bound is the one below.
+// The contract of both: a full-precision product with a sum in the element
+// type, each output one chain of fma over k in ascending order starting from
+// 0, then b - acc.  No tensor cores at reduced precision, no split of k, no
+// reduction across threads, no atomics: two identical solves are bitwise
+// equal, and every kernel in this file gives the same bits for the same
+// operands.  B, P, Q and OUT are row-major with leading dimensions, so a
+// strided view is taken as it is, and any m, n, k >= 0 is masked here.  The
+// thread that reads B[i, j] is the one that writes OUT[i, j], after its own
+// read, which makes OUT == B safe.
 //
-// What bounds it on an H100: at k = 128 in f32 the kernel does 2*k / 8 = 32
-// flop per byte of B traffic (B read once, OUT written once), above the
-// ~20 flop/B where 67 TFLOP/s of non-tensor FP32 meets 3.35 TB/s of HBM.  So
-// FMA throughput bounds it: TF32 tensor cores are ruled out by the solver's
-// precision contract (full-f32 accumulation, the analogue of the TPU path's
-// Precision.HIGHEST), so the product runs on the FP32 pipes.
+// What bounds it on an H100.  f32 at k = 128: 2*k / 8 = 32 flop per byte of B
+// traffic (B read once, OUT written once), above the ~20 flop/B where the
+// card's 67 TFLOP/s of FP32 outside the tensor cores meets 3.35 TB/s of
+// device memory.  So operations bound it, with bytes close behind (0.64 of
+// the operations' time): the read of B and the write of OUT have to run under
+// other blocks' FMAs, or the two add up.  f64: the card's best exact rate is
+// that of the FP64 tensor cores, which this file does not use, and against
+// it bytes bound the kernel.
 //
-// Design, deliberately simple for a first port:
-//   * one block owns one 64 x 64 output tile; 256 threads, each a 4 x 4
-//     micro-tile strided by 16 so that neighbouring threads touch
-//     neighbouring columns of B and OUT (coalesced epilogue);
-//   * K-slices of 16 of P and Q are staged in shared memory, transposed and
-//     padded by one element against bank conflicts; ragged m, n and k edges
-//     are masked here (no K padding, no divisibility gates as on the TPU);
-//   * the accumulator has the element type (f32 FMA for float, f64 for
-//     double) and runs over k in a fixed order, with no atomics and no
-//     cross-block reduction, so two identical solves are bitwise equal;
-//   * B, P, Q and OUT are row-major with leading dimensions, so a strided
-//     view is taken as it is.  The thread that reads B[i, j] is the one that
-//     writes OUT[i, j], which makes OUT == B safe.
+// Two kernels, one rule (`launch`):
+//   * `sub_matmul_kernel<T>`: a 64 x 64 tile a block, 256 threads, a 4 x 4
+//     micro-tile each, K-slices of 16 staged in shared memory.  It serves
+//     every f64 launch, and the f32 launches too small to give each SM one
+//     of the larger tiles (the trailing blocks at the end of a reduction),
+//     where smaller tiles fill the card better;
+//   * `sub_matmul_kernel_f32_128`: a 128 x 128 tile a block, for f32 launches
+//     with ceil(m/128) * ceil(n/128) >= the number of SMs, m >= 1409 for a
+//     square on 132 SMs.  The SM count is read once and cached.  Measured
+//     with both kernels forced in turns (tools/kernel_variants.py --sweep,
+//     NVIDIA H100 80GB HBM3, 700.00 W): the 128-tile kernel is at least as
+//     fast from m = 1280 on and 1.5-1.9 times as fast from m = 1792 on; at
+//     m <= 1024 the two are within the host's launch interval of each other.
 //
-// Later work, not here: 3xTF32 splitting on the tensor cores for f32, DMMA
-// for f64, double-buffered (cp.async / TMA) staging, and a lower-triangle-only
-// syr2k for the symmetric trailing update (householder.py updates the full
-// square only because dense MXU tiles suited the TPU).
+// What held the 64-tile kernel at 31% of the f32 bound, and what the
+// 128-tile kernel does about each:
+//   1. Shared-memory traffic set the pace: a 4 x 4 micro-tile reads 8 scalars
+//      from shared memory for 16 FMAs, one 4-byte load for two FMAs.  Now a
+//      thread keeps an 8 x 8 micro-tile in 64 registers, as 2 x 2 quads of
+//      4 x 4 (rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise in
+//      tx), and reads four 16-byte vectors for 64 FMAs in a k step: one
+//      shared-memory instruction for 16 FMAs.  In a warp the P reads are
+//      broadcasts (two values of ty) and the Q reads are 16 neighbouring
+//      vectors: no bank conflict.
+//   2. Nothing overlapped: load a slice, barrier, compute, barrier.  Now
+//      K-slices of 16 are double-buffered through registers: a thread loads
+//      its two 16-byte quads of P and of Q of slice s+1 from device memory,
+//      computes slice s from buffer s&1 (1024 FMAs, which hide the load's
+//      latency), stores the registers into buffer (s+1)&1, and one barrier
+//      ends the step.  Two blocks are resident on an SM
+//      (__launch_bounds__(256, 2)), so one block's epilogue runs under the
+//      other's FMA loop.  Slices of 8 (half the shared memory, twice the
+//      barriers) were 0-5% slower on the main shapes.
+//   3. The transposing store conflicted two ways, on every element.  Now a
+//      row of the k-major buffers is 132 floats, 16-byte aligned for the
+//      vector reads, and a thread stores four scalars for each 16-byte load:
+//      with four k-quads to a row the stores of a warp still meet two ways
+//      (quads 0 and 2 share banks), but they are a fifth of the shared-memory
+//      instructions; with slices of 8 they were conflict-free.
+//   4. The epilogue was scalar.  Now it reads B and writes OUT 16 bytes a
+//      thread, 16 neighbouring threads on 256 neighbouring bytes, four
+//      vectors in flight before the first store.
+// The 16-byte paths are taken quad by quad where the addresses allow (base
+// 16-byte aligned, leading dimension a multiple of 4, the quad inside k or
+// n); every other quad is loaded or stored as masked scalars, zero beyond k.
+//
+// As built (nvcc -O3 for sm_90a; `python3 chip_smoke.py --kernels` prints
+// ptxas's figures): the 128-tile kernel takes 126 registers a thread, 0 bytes
+// of spill and 33,792 bytes of static shared memory a block; the 64-tile
+// kernel 40 registers and 8,320 bytes in f32, 64 and 16,640 in f64, no spill.
+//
+// Later work, not here: the lower tiles only for the symmetric trailing
+// update (the callers update the full square only because dense tiles suited
+// the TPU), the FP64 tensor cores (DMMA) for f64, and asynchronous staging
+// (cp.async or TMA) if a measurement still shows load stalls.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -114,14 +164,240 @@ sub_matmul_kernel(int m, int n, int k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32, 128 x 128 tile a block
+// ---------------------------------------------------------------------------
+
+constexpr int kBigTile = 128;           // output tile edge
+constexpr int kBigSlice = 16;           // K-slice staged in shared memory
+constexpr int kBigRow = kBigTile + 4;   // padded row of a k-major buffer
+constexpr int kQuad = 4;                // floats of one 16-byte vector
+constexpr int kHalf = kBigTile / 2;     // offset of a thread's second quad
+// staging: a slice of an operand tile is kBigTile rows of kRowQuads quads,
+// kStage of them a thread
+constexpr int kRowQuads = kBigSlice / kQuad;
+constexpr int kStage = kBigTile * kRowQuads / kThreads;
+constexpr int kPassRows = kThreads / kRowQuads;  // rows one pass covers
+static_assert(kStage * kThreads == kBigTile * kRowQuads, "whole passes");
+
+__device__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+// Four values of row `row` of an operand starting at column k0 (a multiple of
+// 4); zero for a row >= rows and for columns >= k.
+__device__ __forceinline__ float4 load_k_quad(const float* __restrict__ base,
+                                              long long ld, int row, int rows,
+                                              int k0, int k, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row < rows && k0 < k) {
+    const float* src = base + static_cast<long long>(row) * ld + k0;
+    if (vec && k0 + kQuad <= k) {
+      v = *reinterpret_cast<const float4*>(src);
+    } else {
+      v.x = src[0];
+      if (k0 + 1 < k) v.y = src[1];
+      if (k0 + 2 < k) v.z = src[2];
+      if (k0 + 3 < k) v.w = src[3];
+    }
+  }
+  return v;
+}
+
+// The transposing store: buf[l0 + i][r] = v[i].
+__device__ __forceinline__ void store_k_quad(float (*buf)[kBigRow], int l0,
+                                             int r, float4 v) {
+  buf[l0 + 0][r] = v.x;
+  buf[l0 + 1][r] = v.y;
+  buf[l0 + 2][r] = v.z;
+  buf[l0 + 3][r] = v.w;
+}
+
+// `valid` leading values of four neighbours in a row of B (valid <= 0: none).
+__device__ __forceinline__ float4 load_row_quad(const float* src, int valid,
+                                                bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vec && valid >= kQuad) {
+    v = *reinterpret_cast<const float4*>(src);
+  } else {
+    if (valid > 0) v.x = src[0];
+    if (valid > 1) v.y = src[1];
+    if (valid > 2) v.z = src[2];
+    if (valid > 3) v.w = src[3];
+  }
+  return v;
+}
+
+__device__ __forceinline__ void store_row_quad(float* dst, float4 v,
+                                               int valid, bool vec) {
+  if (vec && valid >= kQuad) {
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+    if (valid > 0) dst[0] = v.x;
+    if (valid > 1) dst[1] = v.y;
+    if (valid > 2) dst[2] = v.z;
+    if (valid > 3) dst[3] = v.w;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+sub_matmul_kernel_f32_128(int m, int n, int k,
+                          const float* b, long long ldb,
+                          const float* __restrict__ p, long long ldp,
+                          const float* __restrict__ q, long long ldq,
+                          float* out, long long ldo) {
+  // ps[buf][l][r] = P[row0 + r, k0 + l];  qs[buf][l][c] = Q[col0 + c, k0 + l]
+  __shared__ __align__(16) float ps[2][kBigSlice][kBigRow];
+  __shared__ __align__(16) float qs[2][kBigSlice][kBigRow];
+
+  const int t = threadIdx.x;
+  const int tx = t % kSide;
+  const int ty = t / kSide;
+  const int row0 = blockIdx.y * kBigTile;
+  const int col0 = blockIdx.x * kBigTile;
+  // staging: in pass e this thread brings row sr0 + e * kPassRows of the P
+  // tile and of the Q tile, the k-quad starting at sl of the slice
+  const int sr0 = t / kRowQuads;
+  const int sl = (t % kRowQuads) * kQuad;
+  const bool pvec = aligned16(p) && ldp % kQuad == 0;
+  const bool qvec = aligned16(q) && ldq % kQuad == 0;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int slices = (k + kBigSlice - 1) / kBigSlice;
+  if (slices > 0) {
+#pragma unroll
+    for (int e = 0; e < kStage; ++e) {
+      const int sr = sr0 + e * kPassRows;
+      store_k_quad(ps[0], sl, sr,
+                   load_k_quad(p, ldp, row0 + sr, m, sl, k, pvec));
+      store_k_quad(qs[0], sl, sr,
+                   load_k_quad(q, ldq, col0 + sr, n, sl, k, qvec));
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < slices; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < slices;
+    float4 pnext[kStage], qnext[kStage];
+    if (more) {
+      const int k0 = (s + 1) * kBigSlice + sl;
+#pragma unroll
+      for (int e = 0; e < kStage; ++e) {
+        const int sr = sr0 + e * kPassRows;
+        pnext[e] = load_k_quad(p, ldp, row0 + sr, m, k0, k, pvec);
+        qnext[e] = load_k_quad(q, ldq, col0 + sr, n, k0, k, qvec);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kBigSlice; ++l) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(&ps[cur][l][ty * kQuad]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&ps[cur][l][kHalf + ty * kQuad]);
+      const float4 c0 =
+          *reinterpret_cast<const float4*>(&qs[cur][l][tx * kQuad]);
+      const float4 c1 =
+          *reinterpret_cast<const float4*>(&qs[cur][l][kHalf + tx * kQuad]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
+    }
+    if (more) {
+#pragma unroll
+      for (int e = 0; e < kStage; ++e) {
+        const int sr = sr0 + e * kPassRows;
+        store_k_quad(ps[cur ^ 1], sl, sr, pnext[e]);
+        store_k_quad(qs[cur ^ 1], sl, sr, qnext[e]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // acc[hi * 4 + i][hj * 4 + j] belongs to row row0 + hi*64 + ty*4 + i and
+  // column col0 + hj*64 + tx*4 + j.  For each i the four quads of B are read
+  // before the first is written: OUT may be B.
+  const bool ovec = aligned16(b) && aligned16(out) && ldb % kQuad == 0 &&
+                    ldo % kQuad == 0;
+#pragma unroll
+  for (int i = 0; i < kQuad; ++i) {
+    float4 bv[2][2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int gr = row0 + hi * kHalf + ty * kQuad + i;
+#pragma unroll
+      for (int hj = 0; hj < 2; ++hj) {
+        const int gc = col0 + hj * kHalf + tx * kQuad;
+        const int valid = gr < m ? n - gc : 0;
+        bv[hi][hj] = load_row_quad(
+            b + static_cast<long long>(gr) * ldb + gc, valid, ovec);
+      }
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int gr = row0 + hi * kHalf + ty * kQuad + i;
+#pragma unroll
+      for (int hj = 0; hj < 2; ++hj) {
+        const int gc = col0 + hj * kHalf + tx * kQuad;
+        const int valid = gr < m ? n - gc : 0;
+        const int ai = hi * kQuad + i;
+        const int aj = hj * kQuad;
+        const float4 v = make_float4(bv[hi][hj].x - acc[ai][aj + 0],
+                                     bv[hi][hj].y - acc[ai][aj + 1],
+                                     bv[hi][hj].z - acc[ai][aj + 2],
+                                     bv[hi][hj].w - acc[ai][aj + 3]);
+        store_row_quad(out + static_cast<long long>(gr) * ldo + gc, v, valid,
+                       ovec);
+      }
+    }
+  }
+}
+
+// Number of SMs of the current device, read once: every card of one host is
+// taken to be alike.  (cudaGetDeviceProperties costs more than a launch.)
+int sm_count() {
+  static const int sms = [] {
+    int device = 0, value = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&value, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess) {
+      (void)cudaGetLastError();
+      return 0;
+    }
+    return value;
+  }();
+  return sms;
+}
+
+constexpr long long kBigTilesPerSm = 1;  // the launch rule's factor
+
 template <typename T>
 int launch(int m, int n, int k, const T* b, long long ldb, const T* p,
            long long ldp, const T* q, long long ldq, T* out, long long ldo,
            void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, float>::value) {
+    const dim3 big((n + kBigTile - 1) / kBigTile,
+                   (m + kBigTile - 1) / kBigTile);
+    const int sms = sm_count();
+    if (sms > 0 &&
+        static_cast<long long>(big.x) * big.y >= kBigTilesPerSm * sms) {
+      sub_matmul_kernel_f32_128<<<big, kThreads, 0, s>>>(
+          m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  sub_matmul_kernel<T><<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  sub_matmul_kernel<T><<<grid, kThreads, 0, s>>>(m, n, k, b, ldb, p, ldp, q,
+                                                 ldq, out, ldo);
   return static_cast<int>(cudaGetLastError());
 }
 

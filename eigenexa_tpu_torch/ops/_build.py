@@ -93,6 +93,23 @@ def _build(target: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def resource_usage() -> str:
+    """What ptxas reports for every kernel of every source: registers a
+    thread, spill bytes, shared memory a block.  One ``nvcc
+    --resource-usage`` per source, all started together; the objects are
+    thrown away."""
+    nvcc = _nvcc()
+    _BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_ROOT) as tmp:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "--resource-usage", "-c", "-o",
+             str(Path(tmp) / (Path(src).stem + ".o")), str(_CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in _SOURCES]
+        return "".join(f"resource usage of {src}:\n{proc.communicate()[0]}"
+                       for src, proc in zip(_SOURCES, procs))
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built from the checkout's sources on first use."""
     global _lib

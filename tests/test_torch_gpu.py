@@ -45,29 +45,90 @@ def _bound(b, p, q):
                              * float(p.abs().max() * q.abs().max()))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_kernel_matches_plain(cuda, dtype):
-    """A fresh output at a ragged shape, then in place on a strided view;
-    the launch counter rises once per call."""
-    b, p, q = (_randn(s, *sh, dtype=dtype, device=cuda)
-               for s, sh in ((1, (1000, 777)), (2, (1000, 100)),
-                             (3, (777, 100))))
-    before = tk.LAUNCHES["sub_matmul"]
-    out = tk.sub_matmul(b, p, q)
-    ref = tk._sub_matmul_ref(b, p, q)
-    assert float((out - ref).abs().max()) <= _bound(b, p, q)
+# label: (m, n, k, view).  view None: B contiguous, a fresh output.  view
+# (roff, coff, pad, kpad): B is buf[roff:, coff:coff + n] of an (roff + m,
+# coff + n + pad) buffer, updated in place; P and Q are the first k columns
+# of buffers k + kpad wide.  From "wide_view" on, the f32 launches are large
+# enough for the 128-tile kernel: a last column quad that straddles n, a
+# leading dimension that allows no 16-byte access, k below one K-slice, k one
+# quad past a slice, k that ends inside a quad of a 16-byte-aligned row, and a
+# square on either side of the launch rule (one tile for each of 132 SMs).
+KERNEL_CASES = {
+    "ragged": (1000, 777, 100, None),
+    "small_view": (283, 251, 37, (17, 9, 0, 0)),
+    "wide_view": (4200, 4097, 128, (0, 0, 103, 0)),
+    "odd_ld_view": (4200, 4097, 128, (0, 0, 104, 0)),
+    "offset_view": (4100, 4100, 128, (37, 37, 0, 0)),
+    "k5": (4224, 4224, 5, None),
+    "k132": (4224, 4224, 132, None),
+    "k130_of_132": (4224, 4224, 130, (0, 0, 0, 2)),
+    "under_rule": (1408, 1408, 128, None),
+    "over_rule": (1409, 1409, 128, None),
+}
 
-    big, p, q = (_randn(s, *sh, dtype=dtype, device=cuda)
-                 for s, sh in ((5, (300, 260)), (6, (283, 37)),
-                               (7, (251, 37))))
-    keep = big.clone()
-    view = big[17:, 9:]
-    ref = tk._sub_matmul_ref(view, p, q)
-    assert tk.sub_matmul(view, p, q, out=view).data_ptr() == view.data_ptr()
-    assert tk.LAUNCHES["sub_matmul"] == before + 2
-    assert float((view - ref).abs().max()) <= _bound(keep[17:, 9:], p, q)
-    assert torch.equal(big[:17], keep[:17])
-    assert torch.equal(big[:, :9], keep[:, :9])
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_kernel_matches_plain(cuda, dtype, case):
+    """A fresh output, or in place on a strided view with everything
+    outside the view left as it was; the launch counter rises once."""
+    m, n, k, view = KERNEL_CASES[case]
+    roff, coff, pad, kpad = view or (0, 0, 0, 0)
+    buf, pbuf, qbuf = (_randn(s, *sh, dtype=dtype, device=cuda)
+                       for s, sh in ((1, (roff + m, coff + n + pad)),
+                                     (2, (m, k + kpad)), (3, (n, k + kpad))))
+    b, p, q = buf[roff:, coff:coff + n], pbuf[:, :k], qbuf[:, :k]
+    keep = buf.clone()
+    ref = tk._sub_matmul_ref(b, p, q)
+    before = tk.LAUNCHES["sub_matmul"]
+    if view is None:
+        out = tk.sub_matmul(b, p, q)
+        assert out.data_ptr() != b.data_ptr()
+    else:
+        out = tk.sub_matmul(b, p, q, out=b)
+        assert out.data_ptr() == b.data_ptr()
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["sub_matmul"] == before + 1
+    assert float((out - ref).abs().max()) <= _bound(
+        keep[roff:, coff:coff + n], p, q)
+    outside = torch.ones_like(buf, dtype=torch.bool)
+    if view is not None:
+        outside[roff:, coff:coff + n] = False
+        assert not torch.equal(buf, keep)
+    assert torch.equal(buf[outside], keep[outside])
+
+
+@pytest.mark.parametrize("m,n", [(300, 200), (4224, 4224)])
+def test_kernel_with_k_zero_writes_b(cuda, m, n):
+    """k = 0: no product, OUT = B, through either kernel of the launch
+    rule."""
+    b = _randn(1, m, n, dtype=torch.float32, device=cuda)
+    p, q = (torch.empty(r, 0, dtype=torch.float32, device=cuda)
+            for r in (m, n))
+    out = tk.sub_matmul(b, p, q)
+    torch.cuda.synchronize()
+    assert out.data_ptr() != b.data_ptr() and torch.equal(out, b)
+
+
+@pytest.mark.parametrize("m,n,k,ld", [(4224, 4224, 128, 4224),
+                                      (4200, 4097, 100, 4201)])
+def test_large_call_and_row_blocks_give_the_same_bits(cuda, m, n, k, ld):
+    """The launch rule sends a large f32 call to the 128-tile kernel and
+    each block of 384 rows of the same product (3 x 33 tiles, under one
+    for each SM) to the 64-tile kernel.  Both sum over k in one order with
+    fma, so the results are bitwise equal, whichever kernel ran."""
+    b = _randn(1, m, ld, dtype=torch.float32, device=cuda)[:, :n]
+    p, q = (_randn(s, r, k, dtype=torch.float32, device=cuda)
+            for s, r in ((2, m), (3, n)))
+    whole = tk.sub_matmul(b, p, q)
+    blocks = torch.empty_like(whole)
+    for r0 in range(0, m, 384):
+        tk.sub_matmul(b[r0:r0 + 384], p[r0:r0 + 384], q,
+                      out=blocks[r0:r0 + 384])
+    torch.cuda.synchronize()
+    assert float((whole - tk._sub_matmul_ref(b, p, q)).abs().max()) <= _bound(
+        b, p, q)
+    assert torch.equal(whole, blocks)
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
@@ -137,8 +198,12 @@ def test_symv_lower_takes_a_strided_vector(cuda):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,t0,nb,off", [(1837, 1, 64, 0), (1024, 0, 64, 0),
-                                         (1100, 2, 64, 0), (1000, 1, 20, 9)])
+                                         (1100, 2, 64, 0), (1000, 1, 20, 9),
+                                         (4500, 1, 64, 0), (4501, 1, 64, 0)])
 def test_rank2k_update_window_matches_plain(cuda, dtype, m, t0, nb, off):
+    """The last two windows are large enough for the f32 128-tile kernel;
+    their edge is no multiple of its tile, and m = 4501 leaves no 16-byte
+    access to B."""
     big = _randn(31, m + off, m + off, dtype=dtype, device=cuda)
     keep = big.clone()
     b = big[off:, off:]

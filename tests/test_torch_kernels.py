@@ -219,11 +219,124 @@ def test_build_failure_raises_with_nvccs_output(tmp_path, monkeypatch):
     assert list(target.parent.iterdir()) == []    # and nothing left behind
 
 
+def test_resource_usage_asks_ptxas_once_per_source(tmp_path, monkeypatch):
+    from eigenexa_tpu_torch.ops import _build
+
+    fake, log = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "_BUILD_ROOT", tmp_path / "out")
+    text = _build.resource_usage()
+    lines = log.read_text().splitlines()
+    assert len(lines) == len(_build._SOURCES)
+    for src in _build._SOURCES:
+        assert f"resource usage of {src}" in text
+        assert sum(ln.endswith(src) and "--resource-usage" in ln
+                   and "code=sm_90a" in ln for ln in lines) == 1
+    assert list((tmp_path / "out").iterdir()) == []   # nothing is kept
+
+
 def test_kernel_sums_use_no_atomics():
     """The bitwise-repeat contract: no kernel adds across blocks with
     atomics, whose order changes from run to run."""
     for path in (REPO / "eigenexa_tpu_torch" / "csrc").glob("*.cu"):
         assert "atomic" not in _c_code(path).lower(), path
+
+
+@pytest.mark.parametrize("word", ["mma", "wgmma", "tf32", "atomic"])
+def test_sub_matmul_source_keeps_the_full_precision_contract(word):
+    """csrc/sub_matmul.cu promises a full-precision product on the FP32 and
+    FP64 pipes with a sum in one order: its code (comments stripped) names
+    no tensor-core instruction, no TF32 conversion and no atomic."""
+    src = _c_code(REPO / "eigenexa_tpu_torch" / "csrc" / "sub_matmul.cu")
+    assert "sub_matmul_kernel_f32_128" in src
+    assert word not in src.lower()
+
+
+@pytest.mark.parametrize("sms,kernel", [(1, "the 128-tile kernel"),
+                                        (10 ** 6, "the 64-tile kernel")])
+def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
+        tmp_path, sms, kernel):
+    """csrc/sub_matmul.cu itself, compiled by the host compiler against the
+    stand-in runtime of tests/cuda_emu and run on CPU threads: every f32
+    output equals, bit for bit, one chain of fmaf over k then b - acc, at
+    aligned, ragged, odd-stride, offset, in-place and window cases with
+    k = 0 ... 132, and nothing outside the view is written.  The stand-in
+    reports `sms` SMs, which sends every launch to one kernel of the launch
+    rule: both give the same bits."""
+    import re
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ with C++20 (std::barrier)")
+    emu = REPO / "tests" / "cuda_emu"
+    src = (REPO / "eigenexa_tpu_torch" / "csrc" / "sub_matmul.cu").read_text()
+    src, count = re.subn(
+        r"(sub_matmul_kernel\w*(?:<T>)?)<<<(\w+), kThreads, 0,\s*s>>>\(\s*",
+        r"emu_launch(\1, \2, kThreads, ", src)
+    assert count == 2                      # one launch for each kernel
+    (tmp_path / "kern.cpp").write_text(src)
+    shutil.copy(emu / "sub_matmul_main.cpp", tmp_path)
+    build = subprocess.run(
+        ["g++", "-std=c++20", "-O1", f"-I{emu}", "-pthread",
+         "-Wno-unknown-pragmas", "-o", "emu", "sub_matmul_main.cpp"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert build.returncode == 0, build.stderr
+    run = subprocess.run([str(tmp_path / "emu")], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, EMU_SMS=str(sms)))
+    assert run.returncode == 0, (kernel, run.stdout, run.stderr)
+    lines = run.stdout.splitlines()
+    assert lines[-1] == "ALL OK" and len(lines) == 17
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("phase", ["kernel", "same_bits", "symv",
+                                   "rank2k_window"])
+def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
+    """The card script's kernel phases at small sizes on CPU tensors (the
+    plain versions, nothing timed): every case builds its operands, views
+    and bounds and passes its check, so a run on the card is not lost to
+    the script."""
+    cs = _chip_smoke()
+    cpu = torch.device("cpu")
+    before = dict(tk.LAUNCHES)
+    if phase == "kernel":
+        rows = cs.kernel_phase(cpu, 256, timed=False, n_win=300, big=264,
+                               rule=130)
+        assert len(rows) == 2 * len(cs.kernel_cases(256, 300))
+        assert {r["case"] for r in rows} >= {
+            "wide_view", "odd_ld_view", "k5", "k132", "k130_of_132",
+            "under_rule", "over_rule"}
+    elif phase == "same_bits":
+        rows = cs.same_bits_phase(cpu, big=264, block=64)
+        assert len(rows) == 2
+    elif phase == "symv":
+        monkeypatch.setattr(cs, "symv_cases", lambda m: [
+            ("first_column", m, 0, 1), ("window", m, 1, 1),
+            ("pair", m, 0, 2), ("ragged", 637, 1, 1)])
+        rows = cs.symv_phase(cpu, 700, timed=False)
+        assert len(rows) == 8
+    else:
+        assert [c[0] for c in cs.rank2k_window_cases(16384)] == [
+            "first_panel", "window", "ragged", "ragged_large",
+            "odd_ld_large"]
+        monkeypatch.setattr(cs, "rank2k_window_cases", lambda m: [
+            ("first_panel", m, 0), ("window", m, 1), ("ragged", 637, 1),
+            ("odd_ld_large", 701, 1)])
+        rows = cs.rank2k_window_phase(cpu, 700, timed=False)
+        assert len(rows) == 8
+        assert all(r["outside_untouched"] for r in rows)
+    assert all(r["max_abs_err"] <= r["bound"] for r in rows)
+    assert tk.LAUNCHES == before
 
 
 def test_import_runs_no_nvcc(tmp_path):
