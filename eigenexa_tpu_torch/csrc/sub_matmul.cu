@@ -18,36 +18,55 @@
 //
 // The contract of both: a full-precision product with a sum in the element
 // type, each output one chain of fma over k in ascending order starting from
-// 0, then b - acc.  No tensor cores at reduced precision, no split of k, no
-// reduction across threads, no atomics: two identical solves are bitwise
-// equal, and every kernel in this file gives the same bits for the same
-// operands.  B, P, Q and OUT are row-major with leading dimensions, so a
-// strided view is taken as it is, and any m, n, k >= 0 is masked here.  The
-// thread that reads B[i, j] is the one that writes OUT[i, j], after its own
-// read, which makes OUT == B safe.
+// 0, then b - acc.  The one tensor-core instruction in this file is DMMA
+// (`mma.sync.aligned.m8n8k4...f64`), full IEEE f64 with round to nearest,
+// fed k in ascending order; nothing runs at a reduced precision (no TF32, no
+// bf16), there is no split of k, no reduction across threads, no atomics:
+// two identical solves are bitwise equal, and every kernel in this file gives
+// the same bits for the same operands (f64: DMMA's bits, which on an H100
+// equal those of the fma chain and of cuBLAS's DGEMM on every case that
+// chip_smoke.py checks).  B, P, Q and OUT are row-major with leading
+// dimensions, so a strided view is taken as it is, and any m, n, k >= 0 is
+// masked here.  The thread that reads B[i, j] is the one that writes
+// OUT[i, j], after its own read, which makes OUT == B safe.
 //
 // What bounds it on an H100.  f32 at k = 128: 2*k / 8 = 32 flop per byte of B
 // traffic (B read once, OUT written once), above the ~20 flop/B where the
 // card's 67 TFLOP/s of FP32 outside the tensor cores meets 3.35 TB/s of
 // device memory.  So operations bound it, with bytes close behind (0.64 of
 // the operations' time): the read of B and the write of OUT have to run under
-// other blocks' FMAs, or the two add up.  f64: the card's best exact rate is
-// that of the FP64 tensor cores, which this file does not use, and against
-// it bytes bound the kernel.
+// other blocks' FMAs, or the two add up.  f64 at k = 128: 2*k / 16 = 16 flop
+// per byte, under the ridge of the FP64 tensor cores' 67 TFLOP/s, so bytes
+// bound it (1.29 ms at 16384^2) with the operations at 0.8 of that; the FP64
+// pipes outside the tensor cores (33.5 TFLOP/s) would take 2.05 ms for the
+// operations alone, so only DMMA lets them run under the bytes.
 //
-// Two kernels, one rule (`launch`):
-//   * `sub_matmul_kernel<T>`: a 64 x 64 tile a block, 256 threads, a 4 x 4
-//     micro-tile each, K-slices of 16 staged in shared memory.  It serves
-//     every f64 launch, and the f32 launches too small to give each SM one
-//     of the larger tiles (the trailing blocks at the end of a reduction),
-//     where smaller tiles fill the card better;
+// Three kernels, one rule (`launch`):
+//   * `sub_matmul_kernel`: f32, a 64 x 64 tile a block, 256 threads, a 4 x 4
+//     micro-tile each, K-slices of 16 staged in shared memory, for the f32
+//     launches too small to give each SM one of the larger tiles (the
+//     trailing blocks at the end of a reduction), where smaller tiles fill
+//     the card better;
 //   * `sub_matmul_kernel_f32_128`: a 128 x 128 tile a block, for f32 launches
 //     with ceil(m/128) * ceil(n/128) >= the number of SMs, m >= 1409 for a
 //     square on 132 SMs.  The SM count is read once and cached.  Measured
 //     with both kernels forced in turns (tools/kernel_variants.py --sweep,
 //     NVIDIA H100 80GB HBM3, 700.00 W): the 128-tile kernel is at least as
 //     fast from m = 1280 on and 1.5-1.9 times as fast from m = 1792 on; at
-//     m <= 1024 the two are within the host's launch interval of each other.
+//     m <= 1024 the two are within the host's launch interval of each other;
+//   * `sub_matmul_kernel_f64_dmma`: every f64 launch, at any size.  A 128 x 64
+//     tile a block, 256 threads as 8 warps in 4 x 2, each warp 32 x 32
+//     outputs as 4 x 4 DMMA fragments of 8 x 8 (32 accumulators a thread);
+//     K-slices of 8 (two k steps of 4) double-buffered through registers as
+//     in the f32 128-tile kernel; two blocks an SM.  A slice of an operand
+//     row sits in shared memory as four 16-byte pairs (k0 + t, k0 + 4 + t),
+//     t = 0..3, the two k steps of fragment column t: a warp's fragment loads
+//     and its staging stores each cover 512 contiguous bytes, and one 16-byte
+//     load gives a lane its A (or B) values for both k steps.  Rows >= m (or
+//     n) and columns >= k are zero, which leaves an accumulator as it was.
+//     The epilogue reads and writes B and OUT 16 bytes a thread where both
+//     bases are 16-byte aligned and both leading dimensions even, else as
+//     masked scalars.
 //
 // What held the 64-tile kernel at 31% of the f32 bound, and what the
 // 128-tile kernel does about each:
@@ -81,20 +100,33 @@
 // 16-byte aligned, leading dimension a multiple of 4, the quad inside k or
 // n); every other quad is loaded or stored as masked scalars, zero beyond k.
 //
+// What holds the DMMA kernel at 38% of its byte bound (3.39-3.66 ms at
+// 16384^2 x 128 against 1.29 ms; tools/kernel_variants.py --sweep64 on
+// copies with a part taken out, NVIDIA H100 80GB HBM3, 700.00 W): the
+// epilogue alone takes 1.51 ms, the K loop with an FMA in place of each DMMA
+// 1.54 ms more, the DMMAs 0.41 ms more, and a second set of DMMAs would add
+// 1.57 ms.  The parts add up instead of overlapping: each slice waits on
+// its P and Q loads from L2, and the two blocks of an SM start together and
+// reach their epilogues together.  128 x 128 tiles (192 registers, one
+// block an SM), 64 x 64 tiles with three or four blocks an SM, a k-major
+// padded layout of the slices and an L2 prefetch of B's tile at the block's
+// start were each as slow or slower.
+//
 // As built (nvcc -O3 for sm_90a; `python3 chip_smoke.py --kernels` prints
 // ptxas's figures): the 128-tile kernel takes 126 registers a thread, 0 bytes
 // of spill and 33,792 bytes of static shared memory a block; the 64-tile
-// kernel 40 registers and 8,320 bytes in f32, 64 and 16,640 in f64, no spill.
+// kernel 40 registers and 8,320 bytes; the DMMA kernel 128 registers and
+// 24,576 bytes; none spills.
 //
-// Later work, not here: the lower tiles only for the symmetric trailing
-// update (the callers update the full square only because dense tiles suited
-// the TPU), the FP64 tensor cores (DMMA) for f64, and asynchronous staging
-// (cp.async or TMA) if a measurement still shows load stalls.
+// Later work, not here: asynchronous staging (cp.async or TMA) of P and Q in
+// a ring of three or more slices, and of B's tile into shared memory at the
+// block's start, so that the loads and the epilogue's read run under the
+// DMMAs; the lower tiles only for the symmetric trailing update (the callers
+// update the full square only because dense tiles suited the TPU).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -104,27 +136,26 @@ constexpr int kThreads = 256;          // 16 x 16 threads
 constexpr int kSide = 16;              // threads along each tile edge
 constexpr int kMicro = kTile / kSide;  // 4 x 4 outputs per thread
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sub_matmul_kernel(int m, int n, int k,
-                  const T* b, long long ldb,
-                  const T* __restrict__ p, long long ldp,
-                  const T* __restrict__ q, long long ldq,
-                  T* out, long long ldo) {
+                  const float* b, long long ldb,
+                  const float* __restrict__ p, long long ldp,
+                  const float* __restrict__ q, long long ldq,
+                  float* out, long long ldo) {
   // ps[l][r] = P[row0 + r, k0 + l];  qs[l][c] = Q[col0 + c, k0 + l]
-  __shared__ T ps[kSlice][kTile + 1];
-  __shared__ T qs[kSlice][kTile + 1];
+  __shared__ float ps[kSlice][kTile + 1];
+  __shared__ float qs[kSlice][kTile + 1];
 
   const int tx = threadIdx.x % kSide;
   const int ty = threadIdx.x / kSide;
   const int row0 = blockIdx.y * kTile;
   const int col0 = blockIdx.x * kTile;
 
-  T acc[kMicro][kMicro];
+  float acc[kMicro][kMicro];
 #pragma unroll
   for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = T(0);
+    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < k; k0 += kSlice) {
     for (int e = threadIdx.x; e < kTile * kSlice; e += kThreads) {
@@ -133,13 +164,13 @@ sub_matmul_kernel(int m, int n, int k,
       const int gk = k0 + l;
       const int gp = row0 + r;
       const int gq = col0 + r;
-      ps[l][r] = (gp < m && gk < k) ? p[gp * ldp + gk] : T(0);
-      qs[l][r] = (gq < n && gk < k) ? q[gq * ldq + gk] : T(0);
+      ps[l][r] = (gp < m && gk < k) ? p[gp * ldp + gk] : 0.f;
+      qs[l][r] = (gq < n && gk < k) ? q[gq * ldq + gk] : 0.f;
     }
     __syncthreads();
 #pragma unroll
     for (int l = 0; l < kSlice; ++l) {
-      T a[kMicro], c[kMicro];
+      float a[kMicro], c[kMicro];
 #pragma unroll
       for (int i = 0; i < kMicro; ++i) a[i] = ps[l][ty + kSide * i];
 #pragma unroll
@@ -147,7 +178,7 @@ sub_matmul_kernel(int m, int n, int k,
 #pragma unroll
       for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-        for (int j = 0; j < kMicro; ++j) acc[i][j] = fma(a[i], c[j], acc[i][j]);
+        for (int j = 0; j < kMicro; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -361,6 +392,196 @@ sub_matmul_kernel_f32_128(int m, int n, int k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f64, 128 x 64 tile a block, on the FP64 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kDTileM = 128;                     // output rows of a block
+constexpr int kDTileN = 64;                      // output columns of a block
+constexpr int kDSlice = 8;                       // K-slice: two k steps of 4
+constexpr int kDWarpsM = 4;                      // warps along the rows
+constexpr int kDWarpsN = kThreads / 32 / kDWarpsM;
+constexpr int kDFragM = kDTileM / kDWarpsM / 8;  // 8 x 8 fragments of a warp
+constexpr int kDFragN = kDTileN / kDWarpsN / 8;
+constexpr int kDBlocksPerSm = 2;                 // __launch_bounds__' minimum
+// staging: a slice of an operand tile is rows of four (row, t) pairs, each
+// pair the two k steps of fragment column t; one pass of the block covers
+// kDPassRows rows
+constexpr int kDPassRows = kThreads / 4;
+constexpr int kDStageP = kDTileM / kDPassRows;
+constexpr int kDStageQ = kDTileN / kDPassRows;
+static_assert(kDSlice == 8, "a pair holds the slice's two k steps");
+static_assert(kDStageP * kDPassRows == kDTileM &&
+              kDStageQ * kDPassRows == kDTileN, "whole passes");
+static_assert(kDFragM * 8 * kDWarpsM == kDTileM &&
+              kDFragN * 8 * kDWarpsN == kDTileN, "whole fragments");
+static_assert(2 * kDSlice * (kDTileM + kDTileN) * 8 <= 48 * 1024,
+              "static shared memory");
+
+// D = A * B + D on one warp's 8 x 8 x 4 f64 fragments (DMMA, full IEEE f64,
+// round to nearest).  Lane = g * 4 + t holds A[g][t], B[t][g], and D[g][2t],
+// D[g][2t + 1] in c.
+__device__ __forceinline__ void dmma_m8n8k4(double (&c)[2], double a,
+                                            double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+               "{%0,%1}, {%2}, {%3}, {%0,%1};"
+               : "+d"(c[0]), "+d"(c[1]) : "d"(a), "d"(b));
+}
+
+// Operand row `row`, columns kt and kt + 4: the two k steps of fragment
+// column t = kt - k0 of a slice; zero for a row >= rows and past k.
+__device__ __forceinline__ double2 load_k_steps(const double* __restrict__ base,
+                                                long long ld, int row,
+                                                int rows, int kt, int k) {
+  double2 v = make_double2(0.0, 0.0);
+  if (row < rows) {
+    const double* src = base + static_cast<long long>(row) * ld;
+    if (kt < k) v.x = src[kt];
+    if (kt + 4 < k) v.y = src[kt + 4];
+  }
+  return v;
+}
+
+// `valid` leading values of two neighbours in a row of B (valid <= 0: none).
+__device__ __forceinline__ double2 load_row_pair(const double* src, int valid,
+                                                 bool vec) {
+  double2 v = make_double2(0.0, 0.0);
+  if (vec && valid >= 2) {
+    v = *reinterpret_cast<const double2*>(src);
+  } else {
+    if (valid > 0) v.x = src[0];
+    if (valid > 1) v.y = src[1];
+  }
+  return v;
+}
+
+__device__ __forceinline__ void store_row_pair(double* dst, double2 v,
+                                               int valid, bool vec) {
+  if (vec && valid >= 2) {
+    *reinterpret_cast<double2*>(dst) = v;
+  } else {
+    if (valid > 0) dst[0] = v.x;
+    if (valid > 1) dst[1] = v.y;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kDBlocksPerSm)
+sub_matmul_kernel_f64_dmma(int m, int n, int k,
+                           const double* b, long long ldb,
+                           const double* __restrict__ p, long long ldp,
+                           const double* __restrict__ q, long long ldq,
+                           double* out, long long ldo) {
+  // ps[buf][r][t] = (P[row0 + r, k0 + t], P[row0 + r, k0 + 4 + t]),
+  // qs[buf][c][t] likewise for Q[col0 + c]: a row of a slice is 64
+  // contiguous bytes, so a warp's fragment loads and staging stores each
+  // cover 512 contiguous bytes
+  __shared__ __align__(16) double2 ps[2][kDTileM][4];
+  __shared__ __align__(16) double2 qs[2][kDTileN][4];
+
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int g = lane / 4;   // fragment row of A and D, column of B
+  const int tk = lane % 4;  // fragment column of A, row of B; D's pair
+  const int wr = (warp / kDWarpsN) * kDFragM * 8;  // the warp's rows
+  const int wc = (warp % kDWarpsN) * kDFragN * 8;  // and columns in the tile
+  const int row0 = blockIdx.y * kDTileM;
+  const int col0 = blockIdx.x * kDTileN;
+  // staging: in pass e this thread brings the pair st of row
+  // sr0 + e * kDPassRows of the P tile and of the Q tile
+  const int sr0 = t / 4;
+  const int st = t % 4;
+
+  // acc[i][j] = D[g][2tk], D[g][2tk + 1] of fragment (i, j): rows
+  // wr + 8i + g, columns wc + 8j + 2tk, + 1
+  double acc[kDFragM][kDFragN][2];
+#pragma unroll
+  for (int i = 0; i < kDFragM; ++i)
+#pragma unroll
+    for (int j = 0; j < kDFragN; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
+
+  const int slices = (k + kDSlice - 1) / kDSlice;
+  if (slices > 0) {
+#pragma unroll
+    for (int e = 0; e < kDStageP; ++e) {
+      const int sr = sr0 + e * kDPassRows;
+      ps[0][sr][st] = load_k_steps(p, ldp, row0 + sr, m, st, k);
+    }
+#pragma unroll
+    for (int e = 0; e < kDStageQ; ++e) {
+      const int sr = sr0 + e * kDPassRows;
+      qs[0][sr][st] = load_k_steps(q, ldq, col0 + sr, n, st, k);
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < slices; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < slices;
+    double2 pnext[kDStageP], qnext[kDStageQ];
+    if (more) {
+      const int kt = (s + 1) * kDSlice + st;
+#pragma unroll
+      for (int e = 0; e < kDStageP; ++e)
+        pnext[e] = load_k_steps(p, ldp, row0 + sr0 + e * kDPassRows, m, kt, k);
+#pragma unroll
+      for (int e = 0; e < kDStageQ; ++e)
+        qnext[e] = load_k_steps(q, ldq, col0 + sr0 + e * kDPassRows, n, kt, k);
+    }
+    double2 a[kDFragM], c[kDFragN];
+#pragma unroll
+    for (int i = 0; i < kDFragM; ++i) a[i] = ps[cur][wr + i * 8 + g][tk];
+#pragma unroll
+    for (int j = 0; j < kDFragN; ++j) c[j] = qs[cur][wc + j * 8 + g][tk];
+    // the slice's two k steps in ascending order
+#pragma unroll
+    for (int i = 0; i < kDFragM; ++i)
+#pragma unroll
+      for (int j = 0; j < kDFragN; ++j) dmma_m8n8k4(acc[i][j], a[i].x, c[j].x);
+#pragma unroll
+    for (int i = 0; i < kDFragM; ++i)
+#pragma unroll
+      for (int j = 0; j < kDFragN; ++j) dmma_m8n8k4(acc[i][j], a[i].y, c[j].y);
+    if (more) {
+#pragma unroll
+      for (int e = 0; e < kDStageP; ++e)
+        ps[cur ^ 1][sr0 + e * kDPassRows][st] = pnext[e];
+#pragma unroll
+      for (int e = 0; e < kDStageQ; ++e)
+        qs[cur ^ 1][sr0 + e * kDPassRows][st] = qnext[e];
+    }
+    __syncthreads();
+  }
+
+  // For each row of fragments the pairs of B are read before the first is
+  // written: OUT may be B.
+  const bool ovec = aligned16(b) && aligned16(out) && ldb % 2 == 0 &&
+                    ldo % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < kDFragM; ++i) {
+    const int gr = row0 + wr + i * 8 + g;
+    double2 bv[kDFragN];
+#pragma unroll
+    for (int j = 0; j < kDFragN; ++j) {
+      const int gc = col0 + wc + j * 8 + 2 * tk;
+      bv[j] = load_row_pair(b + static_cast<long long>(gr) * ldb + gc,
+                            gr < m ? n - gc : 0, ovec);
+    }
+#pragma unroll
+    for (int j = 0; j < kDFragN; ++j) {
+      const int gc = col0 + wc + j * 8 + 2 * tk;
+      store_row_pair(out + static_cast<long long>(gr) * ldo + gc,
+                     make_double2(bv[j].x - acc[i][j][0],
+                                  bv[j].y - acc[i][j][1]),
+                     gr < m ? n - gc : 0, ovec);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The launch rule
+// ---------------------------------------------------------------------------
+
 // Number of SMs of the current device, read once: every card of one host is
 // taken to be alike.  (cudaGetDeviceProperties costs more than a launch.)
 int sm_count() {
@@ -377,27 +598,33 @@ int sm_count() {
   return sms;
 }
 
-constexpr long long kBigTilesPerSm = 1;  // the launch rule's factor
+constexpr long long kBigTilesPerSm = 1;  // the f32 rule's factor
 
-template <typename T>
-int launch(int m, int n, int k, const T* b, long long ldb, const T* p,
-           long long ldp, const T* q, long long ldq, T* out, long long ldo,
-           void* stream) {
+int launch(int m, int n, int k, const float* b, long long ldb, const float* p,
+           long long ldp, const float* q, long long ldq, float* out,
+           long long ldo, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<T, float>::value) {
-    const dim3 big((n + kBigTile - 1) / kBigTile,
-                   (m + kBigTile - 1) / kBigTile);
-    const int sms = sm_count();
-    if (sms > 0 &&
-        static_cast<long long>(big.x) * big.y >= kBigTilesPerSm * sms) {
-      sub_matmul_kernel_f32_128<<<big, kThreads, 0, s>>>(
-          m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
-      return static_cast<int>(cudaGetLastError());
-    }
+  const dim3 big((n + kBigTile - 1) / kBigTile, (m + kBigTile - 1) / kBigTile);
+  const int sms = sm_count();
+  if (sms > 0 &&
+      static_cast<long long>(big.x) * big.y >= kBigTilesPerSm * sms) {
+    sub_matmul_kernel_f32_128<<<big, kThreads, 0, s>>>(
+        m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  } else {
+    const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
+    sub_matmul_kernel<<<grid, kThreads, 0, s>>>(m, n, k, b, ldb, p, ldp, q,
+                                                ldq, out, ldo);
   }
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  sub_matmul_kernel<T><<<grid, kThreads, 0, s>>>(m, n, k, b, ldb, p, ldp, q,
-                                                 ldq, out, ldo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(int m, int n, int k, const double* b, long long ldb,
+           const double* p, long long ldp, const double* q, long long ldq,
+           double* out, long long ldo, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + kDTileN - 1) / kDTileN, (m + kDTileM - 1) / kDTileM);
+  sub_matmul_kernel_f64_dmma<<<grid, kThreads, 0, s>>>(
+      m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -412,7 +639,7 @@ extern "C" int eigenexa_sub_matmul_f32(int m, int n, int k, const float* b,
                                        long long ldp, const float* q,
                                        long long ldq, float* out,
                                        long long ldo, void* stream) {
-  return launch<float>(m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream);
+  return launch(m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream);
 }
 
 extern "C" int eigenexa_sub_matmul_f64(int m, int n, int k, const double* b,
@@ -420,7 +647,7 @@ extern "C" int eigenexa_sub_matmul_f64(int m, int n, int k, const double* b,
                                        long long ldp, const double* q,
                                        long long ldq, double* out,
                                        long long ldo, void* stream) {
-  return launch<double>(m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream);
+  return launch(m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream);
 }
 
 // Window entry points: B is (m, m), P and Q are (m, k), and only rows and
@@ -430,8 +657,8 @@ extern "C" int eigenexa_sub_matmul_window_f32(int m, int w, int k, float* b,
                                               long long ldp, const float* q,
                                               long long ldq, void* stream) {
   float* win = b + w * ldb + w;
-  return launch<float>(m - w, m - w, k, win, ldb, p + w * ldp, ldp,
-                       q + w * ldq, ldq, win, ldb, stream);
+  return launch(m - w, m - w, k, win, ldb, p + w * ldp, ldp,
+                q + w * ldq, ldq, win, ldb, stream);
 }
 
 extern "C" int eigenexa_sub_matmul_window_f64(int m, int w, int k, double* b,
@@ -439,6 +666,6 @@ extern "C" int eigenexa_sub_matmul_window_f64(int m, int w, int k, double* b,
                                               long long ldp, const double* q,
                                               long long ldq, void* stream) {
   double* win = b + w * ldb + w;
-  return launch<double>(m - w, m - w, k, win, ldb, p + w * ldp, ldp,
-                        q + w * ldq, ldq, win, ldb, stream);
+  return launch(m - w, m - w, k, win, ldb, p + w * ldp, ldp,
+                q + w * ldq, ldq, win, ldb, stream);
 }

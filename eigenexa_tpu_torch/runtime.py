@@ -51,11 +51,12 @@ _DEFAULT_CTX: Optional[EigenContext] = None
 def eigen_init(device: Union[str, torch.device, None] = None,
                config: Optional[SolverConfig] = None) -> EigenContext:
     """Build the solver environment (reference: eigen_init,
-    src/eigen_libs.F:70).  The device defaults to the first CUDA card when
-    there is one, else the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    ctx = EigenContext(device=torch.device(device),
+    src/eigen_libs.F:70).  The device defaults to the current CUDA card,
+    whether or not one is present, so a solve never moves to the CPU
+    unasked; a caller asks for the CPU with ``eigen_init("cpu")``.  Building
+    the context needs no card: the first solve that moves an input to the
+    card does."""
+    ctx = EigenContext(device=torch.device(device or "cuda"),
                        config=config or SolverConfig())
     apply_precision(ctx.config)
     global _DEFAULT_CTX

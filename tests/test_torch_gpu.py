@@ -110,15 +110,19 @@ def test_kernel_with_k_zero_writes_b(cuda, m, n):
     assert out.data_ptr() != b.data_ptr() and torch.equal(out, b)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,n,k,ld", [(4224, 4224, 128, 4224),
                                       (4200, 4097, 100, 4201)])
-def test_large_call_and_row_blocks_give_the_same_bits(cuda, m, n, k, ld):
+def test_large_call_and_row_blocks_give_the_same_bits(cuda, m, n, k, ld,
+                                                      dtype):
     """The launch rule sends a large f32 call to the 128-tile kernel and
     each block of 384 rows of the same product (3 x 33 tiles, under one
     for each SM) to the 64-tile kernel.  Both sum over k in one order with
-    fma, so the results are bitwise equal, whichever kernel ran."""
-    b = _randn(1, m, ld, dtype=torch.float32, device=cuda)[:, :n]
-    p, q = (_randn(s, r, k, dtype=torch.float32, device=cuda)
+    fma, so the results are bitwise equal, whichever kernel ran.  In f64
+    both take the DMMA kernel, whose sums do not depend on where a tile
+    lies: bitwise equal too."""
+    b = _randn(1, m, ld, dtype=dtype, device=cuda)[:, :n]
+    p, q = (_randn(s, r, k, dtype=dtype, device=cuda)
             for s, r in ((2, m), (3, n)))
     whole = tk.sub_matmul(b, p, q)
     blocks = torch.empty_like(whole)
@@ -284,6 +288,36 @@ def test_windowed_eigen_s_on_the_card(cuda):
     wr, zr, _ = ext.eigen_s(a, ctx=ctx)          # the rolled path
     assert tk.LAUNCHES["symv_lower"] == 2 * 1280
     assert float((w - wr).abs().max()) < 1e-4 * float(wr.abs().max())
+    ext.eigen_free()
+
+
+def test_windowed_eigen_s_f64_on_the_card(cuda):
+    """Frank n=1100 f64 through the windowed reduction: 17 full panels
+    (1088 symv_lower, 17 rank2k_update_window launches; the window reaches
+    t0 = 2), 9 WY blocks; every f64 launch of the three kernels on one
+    solve.  Checks pass and a rerun is bitwise equal."""
+    from eigenexa_tpu_torch.ops import householder
+    from eigenexa_tpu_torch.testing import eigenvalue_check, frank_spectrum
+
+    n = 1100
+    ctx = ext.eigen_init(cuda)
+    a = frank(n, torch.float64, cuda)
+    old = householder.TRD_IMPL
+    householder.TRD_IMPL = "windowed"
+    try:
+        for key in tk.LAUNCHES:
+            tk.LAUNCHES[key] = 0
+        w, z, _ = ext.eigen_s(a, ctx=ctx)
+        assert tk.LAUNCHES == {"symv_lower": 1088,
+                               "rank2k_update_window": 17, "sub_matmul": 9}
+        w2, z2, _ = ext.eigen_s(a, ctx=ctx)
+    finally:
+        householder.TRD_IMPL = old
+    assert residual_check(a, z, w).passed
+    assert orthogonality_check(z).passed
+    wt = eigenvalue_check(w, frank_spectrum(n, torch.float64, cuda))
+    assert wt.passed or wt.caution, wt
+    assert torch.equal(w, w2) and torch.equal(z, z2)
     ext.eigen_free()
 
 

@@ -244,49 +244,81 @@ def test_kernel_sums_use_no_atomics():
 
 @pytest.mark.parametrize("word", ["mma", "wgmma", "tf32", "atomic"])
 def test_sub_matmul_source_keeps_the_full_precision_contract(word):
-    """csrc/sub_matmul.cu promises a full-precision product on the FP32 and
-    FP64 pipes with a sum in one order: its code (comments stripped) names
-    no tensor-core instruction, no TF32 conversion and no atomic."""
+    """csrc/sub_matmul.cu promises a full-precision product with a sum in
+    one order: its code (comments stripped) names no warpgroup
+    tensor-core instruction, no TF32 conversion and no atomic.  Its one
+    tensor-core instruction is DMMA, full IEEE f64: every `mma` in the code
+    is `mma.sync.aligned.m8n8k4...f64`, and the f32 kernels name none."""
+    import re
+
     src = _c_code(REPO / "eigenexa_tpu_torch" / "csrc" / "sub_matmul.cu")
     assert "sub_matmul_kernel_f32_128" in src
-    assert word not in src.lower()
+    if word != "mma":
+        assert word not in src.lower()
+        return
+    found = re.findall(r"\w*mma[\w.]*", src)
+    instr = [w for w in found if "." in w]
+    assert instr == ["mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64"]
+    assert set(found) - set(instr) == {"dmma_m8n8k4",
+                                       "sub_matmul_kernel_f64_dmma"}
+    for kernel in ("sub_matmul_kernel(", "sub_matmul_kernel_f32_128("):
+        body = src[src.index(kernel):]
+        body = body[:body.index("\n}\n")]
+        assert "mma" not in body, kernel
 
 
-@pytest.mark.parametrize("sms,kernel", [(1, "the 128-tile kernel"),
-                                        (10 ** 6, "the 64-tile kernel")])
-def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
-        tmp_path, sms, kernel):
-    """csrc/sub_matmul.cu itself, compiled by the host compiler against the
-    stand-in runtime of tests/cuda_emu and run on CPU threads: every f32
-    output equals, bit for bit, one chain of fmaf over k then b - acc, at
-    aligned, ragged, odd-stride, offset, in-place and window cases with
-    k = 0 ... 132, and nothing outside the view is written.  The stand-in
-    reports `sms` SMs, which sends every launch to one kernel of the launch
-    rule: both give the same bits."""
+@pytest.fixture(scope="module")
+def emu_binary(tmp_path_factory):
+    """csrc/sub_matmul.cu built by the host compiler against the stand-in
+    runtime of tests/cuda_emu: the launches and the inline PTX rewritten
+    into the stand-in's calls, with sub_matmul_main.cpp as its main."""
     import re
     import shutil
 
     if shutil.which("g++") is None:
-        pytest.skip("needs g++ with C++20 (std::barrier)")
+        pytest.skip("needs g++ with C++20")
     emu = REPO / "tests" / "cuda_emu"
     src = (REPO / "eigenexa_tpu_torch" / "csrc" / "sub_matmul.cu").read_text()
     src, count = re.subn(
-        r"(sub_matmul_kernel\w*(?:<T>)?)<<<(\w+), kThreads, 0,\s*s>>>\(\s*",
+        r"(sub_matmul_kernel\w*)<<<(\w+), kThreads, 0,\s*s>>>\(\s*",
         r"emu_launch(\1, \2, kThreads, ", src)
-    assert count == 2                      # one launch for each kernel
+    assert count == 3                      # one launch for each kernel
+    src, count = re.subn(
+        r'asm volatile\("mma.*?:\s*"\+d"\((.+?)\),\s*"\+d"\((.+?)\)'
+        r'\s*:\s*"d"\((.+?)\),\s*"d"\((.+?)\)\);',
+        r"emu_dmma_m8n8k4(\1, \2, \3, \4);", src, flags=re.S)
+    assert count == 1 and "asm" not in src
+    tmp_path = tmp_path_factory.mktemp("emu")
     (tmp_path / "kern.cpp").write_text(src)
     shutil.copy(emu / "sub_matmul_main.cpp", tmp_path)
     build = subprocess.run(
-        ["g++", "-std=c++20", "-O1", f"-I{emu}", "-pthread",
-         "-Wno-unknown-pragmas", "-o", "emu", "sub_matmul_main.cpp"],
+        ["g++", "-std=c++20", "-O1", f"-I{emu}", "-Wno-unknown-pragmas",
+         "-o", "emu", "sub_matmul_main.cpp"],
         cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert build.returncode == 0, build.stderr
-    run = subprocess.run([str(tmp_path / "emu")], capture_output=True,
-                         text=True, timeout=300,
+    return tmp_path / "emu"
+
+
+@pytest.mark.parametrize("sms,kernel", [(1, "the 128-tile kernel"),
+                                        (10 ** 6, "the 64-tile kernel"),
+                                        (1, "the f64 DMMA kernel")])
+def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
+        emu_binary, sms, kernel):
+    """csrc/sub_matmul.cu itself, run as fibers on a CPU thread (see
+    `emu_binary`): every output equals, bit for bit, one chain of fma over
+    k then b - acc, at aligned, ragged, odd-stride, offset, in-place and
+    window cases with k = 0 ... 132, and nothing outside the view is
+    written.  In f32 the stand-in reports `sms` SMs, which sends every
+    launch to one kernel of the launch rule: both give the same bits.
+    Every f64 launch takes the DMMA kernel, whose inline PTX becomes the
+    stand-in's fragment exchange."""
+    f64 = "f64" in kernel
+    run = subprocess.run([str(emu_binary), "f64" if f64 else "f32"],
+                         capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, EMU_SMS=str(sms)))
     assert run.returncode == 0, (kernel, run.stdout, run.stderr)
     lines = run.stdout.splitlines()
-    assert lines[-1] == "ALL OK" and len(lines) == 17
+    assert lines[-1] == "ALL OK" and len(lines) == (11 if f64 else 17)
 
 
 def _chip_smoke():
@@ -318,25 +350,50 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
             "under_rule", "over_rule"}
     elif phase == "same_bits":
         rows = cs.same_bits_phase(cpu, big=264, block=64)
-        assert len(rows) == 2
+        assert len(rows) == 4
+        assert {r["dtype"] for r in rows} == {"float32", "float64"}
     elif phase == "symv":
-        monkeypatch.setattr(cs, "symv_cases", lambda m: [
-            ("first_column", m, 0, 1), ("window", m, 1, 1),
-            ("pair", m, 0, 2), ("ragged", 637, 1, 1)])
-        rows = cs.symv_phase(cpu, 700, timed=False)
-        assert len(rows) == 8
+        assert [c[1:] for c in cs.symv_cases(16384, 8192)["float64"]
+                if c[0].startswith("f64_path")] == [(8192, 0, 1),
+                                                     (8192, 8, 1)]
+        cases = [("first_column", 700, 0, 1), ("window", 700, 1, 1),
+                 ("pair", 700, 0, 2), ("ragged", 637, 1, 1)]
+        monkeypatch.setattr(cs, "symv_cases", lambda m, m64: {
+            "float32": cases,
+            "float64": cases + [("f64_path_window", m64, 1, 1)]})
+        rows = cs.symv_phase(cpu, 700, timed=False, m_f64=600)
+        assert len(rows) == 9
     else:
-        assert [c[0] for c in cs.rank2k_window_cases(16384)] == [
+        names = {dtype: [c[0] for c in cases] for dtype, cases in
+                 cs.rank2k_window_cases(16384, 8192).items()}
+        assert names["float32"] == [
             "first_panel", "window", "ragged", "ragged_large",
             "odd_ld_large"]
-        monkeypatch.setattr(cs, "rank2k_window_cases", lambda m: [
-            ("first_panel", m, 0), ("window", m, 1), ("ragged", 637, 1),
-            ("odd_ld_large", 701, 1)])
-        rows = cs.rank2k_window_phase(cpu, 700, timed=False)
-        assert len(rows) == 8
+        assert names["float64"] == names["float32"] + [
+            "f64_path_first_panel", "f64_path_window"]
+        cases = [("first_panel", 700, 0), ("window", 700, 1),
+                 ("ragged", 637, 1), ("odd_ld_large", 701, 1)]
+        monkeypatch.setattr(cs, "rank2k_window_cases", lambda m, m64: {
+            "float32": cases,
+            "float64": cases + [("f64_path_window", m64, 1)]})
+        rows = cs.rank2k_window_phase(cpu, 700, timed=False, m_f64=600)
+        assert len(rows) == 9
         assert all(r["outside_untouched"] for r in rows)
     assert all(r["max_abs_err"] <= r["bound"] for r in rows)
     assert tk.LAUNCHES == before
+
+
+def test_chip_smoke_f64_phase_passes_on_the_cpu(monkeypatch):
+    """The card script's f64 phase at Frank n = 200 on the CPU (the plain
+    versions): rolled cold and warm, bitwise equal, then windowed; every
+    check passes, and no kernel is launched."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "expected_launches", lambda n: 0)
+    monkeypatch.setattr(cs, "expected_launches_windowed", lambda n: {
+        name: 0 for name in tk.LAUNCHES})
+    rolled, windowed = cs.f64_phase(torch.device("cpu"), 200)
+    zeros = dict.fromkeys(tk.LAUNCHES, 0)
+    assert rolled == zeros and windowed == zeros
 
 
 def test_import_runs_no_nvcc(tmp_path):

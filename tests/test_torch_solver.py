@@ -158,6 +158,45 @@ def test_numpy_input_and_interop():
     ext.eigen_free(ctx)
 
 
+def test_default_context_is_the_card_and_never_the_cpu():
+    """eigen_init() names the CUDA card whether or not there is one, and
+    building it needs none; a numpy input then goes to the card, so on a
+    machine without one the solve raises instead of running on the CPU.
+    A CPU tensor still solves on its own device."""
+    if torch.cuda.is_available():
+        pytest.skip("shows the behaviour of a machine without a card")
+    ctx = ext.eigen_init()
+    try:
+        assert ctx.device.type == "cuda"
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            ext.eigen_s(sym(16, 16))
+        w, z, _ = ext.eigen_s(t(sym(16, 16)))
+        assert w.device.type == "cpu" and z.device.type == "cpu"
+    finally:
+        ext.eigen_free(ctx)
+
+
+@pytest.mark.parametrize("n", [192, 8192])
+def test_frank_spectrum_matches_jax_and_loses_no_digits(n):
+    """The port's Frank spectrum is the JAX package's up to the JAX
+    formula's cancellation, and within 4ε (relative) of the same values in
+    extended precision.  (The JAX package's 1/(2(1 − cos θ)) was measured
+    1.6e-9 relative off at n = 8192 on the largest eigenvalue; only the
+    agreement is bounded here, not that error.)"""
+    from eigenexa_tpu.testing.matgen import frank_spectrum as j_spectrum
+
+    w = frank_spectrum(n).numpy()
+    i = np.arange(1, n + 1, dtype=np.longdouble)
+    theta = np.pi * (2 * (n - i) + 1) / (2 * n + 1)
+    exact = 0.25 / np.sin(theta / 2) ** 2
+    eps = np.finfo(np.float64).eps
+    assert np.all(np.diff(w) > 0)
+    assert float(np.max(np.abs((w - exact) / exact))) < 4 * eps
+    jw = n_(j_spectrum(n))
+    rel = np.abs(jw - w) / w
+    assert float(rel.max()) < (1e-11 if n == 192 else 4e-9)
+
+
 def test_config_from_jax():
     jcfg = JaxConfig(panel_forward=32, panel_backward=64, use_pallas=False,
                      matmul_precision="high")

@@ -6,7 +6,8 @@ script makes each variant as a copy of the port (``chip_smoke.py`` and
 ``csrc/sub_matmul.cu``, runs ``python3 chip_smoke.py --kernels`` there (its
 own build, its own checks) and prints, for each variant, the exit code,
 ptxas's line for every kernel of the edited source, and one short line per
-f32 ``kernel`` case.  The checkout itself is never edited.
+``kernel`` case of ``sub_matmul`` and ``rank2k_update_window``, f32 and
+f64.  The checkout itself is never edited.
 
     python3 tools/kernel_variants.py base slice16:kBigSlice=16 \\
         rule1:kBigTilesPerSm=1 base
@@ -20,13 +21,15 @@ run's own spread.  The full output of each variant goes to
 ``<out>/variant_<position>_<name>.txt``; ``--out DIR`` before the variants
 names the directory (default ``build/variants``).
 
-``--sweep`` as the first argument (before ``--out``) runs, in place of ``chip_smoke.py
---kernels``, a sweep over f32 squares m = 512 ... 4096 at k = 128, in place:
-50 launches between two CUDA events, the median of 7 such batches, so that
-the host's launch overhead does not hide a kernel of 50 microseconds.  With
-one variant that sends every f32 launch to the 128-tile kernel
-(``kBigTilesPerSm=0``) and one that sends none (``=100000``) it shows where
-the launch rule should cross.
+``--sweep`` as the first argument (before ``--out``) runs, in place of
+``chip_smoke.py --kernels``, a sweep over f32 squares m = 512 ... 4096 at
+k = 128, in place: 50 launches between two CUDA events, the median of 7
+such batches, so that the host's launch overhead does not hide a kernel of
+50 microseconds.  With one variant that sends every f32 launch to the
+128-tile kernel (``kBigTilesPerSm=0``) and one that sends none
+(``=100000``) it shows where the launch rule should cross.  ``--sweep64``
+does the same over f64 squares m = 1024 ... 16384; it checks nothing, so
+it also times copies that leave out a part of the kernel on purpose.
 """
 
 import json
@@ -44,9 +47,9 @@ import statistics, torch
 from eigenexa_tpu_torch.ops import kernels
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(5)
-for m in (512, 768, 1024, 1280, 1536, 1792, 2048, 2304, 2560, 3072, 4096):
-    b, p, q = (torch.randn(m, c, generator=gen, device=dev) * 1e-3
-               for c in (m, 128, 128))
+for m in SIZES:
+    b, p, q = (torch.randn(m, c, generator=gen, device=dev, dtype=DTYPE)
+               * 1e-3 for c in (m, 128, 128))
     kernels.sub_matmul(b, p, q, out=b)
     times = []
     for _ in range(7):
@@ -58,9 +61,15 @@ for m in (512, 768, 1024, 1280, 1536, 1792, 2048, 2304, 2560, 3072, 4096):
         end.synchronize()
         times.append(start.elapsed_time(end) / 50)
     tiles = (-(-m // 128)) ** 2
-    print(f"sweep m={m} tiles128={tiles} ms={statistics.median(times):.5f} "
-          f"min={min(times):.5f}", flush=True)
+    print(f"sweep {DTYPE} m={m} tiles128={tiles} "
+          f"ms={statistics.median(times):.5f} min={min(times):.5f}",
+          flush=True)
 """
+SWEEP_SIZES = {
+    "--sweep": ("torch.float32", (512, 768, 1024, 1280, 1536, 1792, 2048,
+                                  2304, 2560, 3072, 4096)),
+    "--sweep64": ("torch.float64", (1024, 2048, 4096, 8192, 16384)),
+}
 
 
 def _edited(text: str, consts: dict, replace) -> str:
@@ -78,7 +87,7 @@ def _edited(text: str, consts: dict, replace) -> str:
 
 
 def _run_variant(position: int, name: str, consts: dict, replace,
-                 sweep: bool, out_dir: Path) -> None:
+                 sweep, out_dir: Path) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         shutil.copy(REPO / "chip_smoke.py", root)
@@ -87,7 +96,12 @@ def _run_variant(position: int, name: str, consts: dict, replace,
                         ignore=shutil.ignore_patterns("__pycache__"))
         src = root / SOURCE
         src.write_text(_edited(src.read_text(), consts, replace))
-        command = ["-c", SWEEP] if sweep else ["chip_smoke.py", "--kernels"]
+        if sweep:
+            dtype, sizes = SWEEP_SIZES[sweep]
+            command = ["-c", f"import torch\nDTYPE = {dtype}\n"
+                       f"SIZES = {sizes}\n{SWEEP}"]
+        else:
+            command = ["chip_smoke.py", "--kernels"]
         proc = subprocess.run([sys.executable, *command], cwd=root,
                               capture_output=True, text=True)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -104,7 +118,7 @@ def _run_variant(position: int, name: str, consts: dict, replace,
 
 
 def _print_summary(stdout: str) -> None:
-    """ptxas's figures for the edited source, and the f32 kernel cases."""
+    """ptxas's figures for the edited source, and its kernel cases."""
     lines = stdout.splitlines()
     in_source = False
     for i, line in enumerate(lines):
@@ -117,11 +131,12 @@ def _print_summary(stdout: str) -> None:
                   f"{line.split(':', 1)[1].strip()}; {spill}")
         if line.startswith("kernel "):
             row = json.loads(line[len("kernel "):])
-            if row["dtype"] != "float32" or row["name"] == "symv_lower":
+            if row["name"] == "symv_lower":
                 continue
             keys = ("ms", "library_ms", "bound_ms", "max_abs_err",
-                    "bitwise_equal")
-            print(f"  {row['name']} {row['case']} m={row['m']}: "
+                    "bitwise_equal", "bitwise_plain")
+            print(f"  {row['name']} {row['case']} {row['dtype']} "
+                  f"m={row['m']}: "
                   + " ".join(f"{k}={row[k]:.6g}" if isinstance(
                       row[k], float) else f"{k}={row[k]}"
                       for k in keys if k in row))
@@ -130,9 +145,7 @@ def _print_summary(stdout: str) -> None:
 def main(argv) -> int:
     variants = []
     args = list(argv)
-    sweep = args[:1] == ["--sweep"]
-    if sweep:
-        args.pop(0)
+    sweep = args.pop(0) if args[:1] in (["--sweep"], ["--sweep64"]) else None
     out_dir = REPO / "build" / "variants"
     if args[:1] == ["--out"]:
         out_dir = Path(args[1]).resolve()
