@@ -15,14 +15,21 @@ result line:
               case with the error and its bound, the kernel's and the plain
               version's time (CUDA events, median), the time of the one
               library call that computes the same (``library_ms``) and the
-              least time the card could take (``bound_ms``):
+              least time the card could take (``bound_ms``).  ``ms`` is one
+              call with its host side (two events around it, the stream
+              drained first); ``device_ms`` and ``library_device_ms`` the
+              card's time of one call (50 calls between two events, the
+              median of 5 such runs, over 50):
               ``sub_matmul`` at the main paths' shapes, a ragged shape,
               in-place strided views, and shapes that drive the f32
               128-tile kernel through its edges (leading dimensions that
               allow no 16-byte access, k = 5, 130 and 132, a square on
               either side of the launch rule); ``symv_lower`` on a matrix
               whose upper triangle holds garbage (zeros above the window,
-              two calls bitwise equal); ``rank2k_update_window``
+              a call into a reused workspace bitwise equal to one that
+              makes its own), also in the fused form that the windowed
+              column calls (a panel [U | W], its corrections applied in
+              the summing pass); ``rank2k_update_window``
               (everything outside the window bitwise untouched); and
               ``same_bits``: a large ``sub_matmul`` call against the same
               product taken in row blocks, f32 (the launch rule sends the
@@ -53,7 +60,8 @@ read just after.  The last three lines are the kernels JSON object, the
 ``python3 chip_smoke.py --kernels`` stops after the kernel phases: device,
 build, what ptxas reports for every kernel (registers, spill, shared
 memory), the ``kernel`` lines with their checks and times, the
-``nvidia-smi`` line; no solve and no result line.
+``nvidia-smi`` line; no solve and no result line.  ``--kernels symv_lower``
+(or any names of ``KERNELS``) runs the phases of those kernels only.
 
 Two more modes take findings, check nothing, and print no result line:
 
@@ -143,6 +151,8 @@ def _take_launches(kernels) -> dict:
 
 
 def _time_ms(fn, device, reps: int = 10) -> float:
+    """The time of one call with its host side (``ms``): two events around
+    a single call after the stream has drained, the median of `reps`."""
     import torch
 
     fn()
@@ -156,6 +166,41 @@ def _time_ms(fn, device, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, device, launches: int = 50, batches: int = 5) -> float:
+    """The device's time of one call (``device_ms``): one warm-up, then
+    `launches` calls between two events, the median of `batches` such runs
+    divided by `launches`.  The host enqueues ahead of the card, so its
+    side of a call hides unless it is slower than the kernel."""
+    import torch
+
+    fn()
+    times = []
+    stream = torch.cuda.current_stream(device)
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(launches):
+            fn()
+        end.record(stream)
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def _times(row: dict, kernel, plain, library, device, plain_reps=10):
+    """``ms`` and ``device_ms`` of the kernel's wrapper, ``plain_ms`` of its
+    plain version, ``library_ms`` and ``library_device_ms`` of the library
+    call (None where there is none)."""
+    row["ms"] = _time_ms(kernel, device)
+    row["device_ms"] = _device_ms(kernel, device)
+    row["plain_ms"] = _time_ms(plain, device, plain_reps)
+    row["library_ms"] = (None if library is None
+                         else _time_ms(library, device))
+    row["library_device_ms"] = (None if library is None
+                                else _device_ms(library, device))
 
 
 def _bound(dtype: str, elements: float, flops: float) -> dict:
@@ -303,16 +348,14 @@ def kernel_phase(device, n_main: int, timed: bool, n_win: int = N_WINDOWED,
                 # reported, not gated: whether DMMA gives cuBLAS's bits
                 row["bitwise_plain"] = same
             if timed:
-                # a view is timed as it is, in place: eleven updates of
-                # N(0,1) data stay finite
+                # a view is timed as it is, in place: some hundreds of
+                # updates of N(0,1) data by the same product stay finite
                 tb = b if view is None else view
                 o = torch.empty_like(b) if view is None else view
-                row["ms"] = _time_ms(
-                    lambda: kernels.sub_matmul(tb, p, q, out=o), device)
-                row["plain_ms"] = _time_ms(
-                    lambda: kernels._sub_matmul_ref(tb, p, q), device)
-                row["library_ms"] = _time_ms(
-                    lambda: torch.addmm(tb, p, q.T, alpha=-1, out=o), device)
+                _times(row, lambda: kernels.sub_matmul(tb, p, q, out=o),
+                       lambda: kernels._sub_matmul_ref(tb, p, q),
+                       lambda: torch.addmm(tb, p, q.T, alpha=-1, out=o),
+                       device)
                 row.update(_bound(_name(dtype), 2 * m * n + (m + n) * k,
                                   2.0 * m * n * k))
                 del o, tb
@@ -365,27 +408,42 @@ def same_bits_phase(device, big: int = BIG, block: int = 384):
 
 
 def symv_cases(m_main: int, m_f64: int):
-    """(label, m, t0, nc) per dtype: the first column of the f32 windowed
-    path (the full matrix), a window further down, the two-vector pass, a
-    ragged size; f64 adds the f64 windowed path's own matrix (m_f64), its
-    first column and a window further down."""
-    cases = [("first_column", m_main, 0, 1), ("window", m_main, 16, 1),
-             ("pair", m_main, 0, 2), ("ragged", 1837, 1, 1)]
-    return {"float32": cases,
-            "float64": cases + [("f64_path_first_column", m_f64, 0, 1),
-                                ("f64_path_window", m_f64, 8, 1)]}
+    """(label, m, t0, nc, fused) per dtype: the first column of the f32
+    windowed path (the full matrix), a window further down, the two-vector
+    pass, a ragged size; f64 adds the f64 windowed path's own matrix
+    (m_f64), its first column and a window further down.  Then the fused
+    form that the windowed column calls (``fused`` True: one vector, the
+    panel's corrections applied): f32 at m_main at the first, a middle and
+    the last window group of an n = m_main solve, f64 at m_f64 at its
+    first and a middle one."""
+    cases = [("first_column", m_main, 0, 1, False),
+             ("window", m_main, 16, 1, False),
+             ("pair", m_main, 0, 2, False), ("ragged", 1837, 1, 1, False)]
+    f64 = cases + [("f64_path_first_column", m_f64, 0, 1, False),
+                   ("f64_path_window", m_f64, 8, 1, False),
+                   ("fused_f64_path_first_column", m_f64, 0, 1, True),
+                   ("fused_f64_path_window", m_f64, 8, 1, True)]
+    return {"float32": cases + [("fused_first_column", m_main, 0, 1, True),
+                                ("fused_window", m_main, 16, 1, True),
+                                ("fused_late_window", m_main, 28, 1, True)],
+            "float64": f64}
 
 
 def symv_phase(device, m_main: int, timed: bool, m_f64: int = N_F64):
     """Compare symv_lower with its plain version on a matrix whose upper
-    triangle is garbage; returns one result row per (case, dtype)."""
+    triangle is garbage; returns one result row per (case, dtype).  A fused
+    case hands it a panel [U | W] of NB_F columns a half, NB_F − 1 of them
+    filled (the last column of a panel) and zero above the window, as the
+    windowed column does.  The first call makes its own workspace, the
+    second reuses one that the timed calls reuse too: the two must give
+    the same bits."""
     import torch
     from eigenexa_tpu_torch.ops import kernels
 
     rows = []
     gen = torch.Generator(device=device).manual_seed(4321)
     for dtype in (torch.float32, torch.float64):
-        for label, m, t0, nc in symv_cases(m_main, m_f64)[_name(dtype)]:
+        for label, m, t0, nc, fused in symv_cases(m_main, m_f64)[_name(dtype)]:
             w0 = t0 * kernels.WIN_TM
             if w0 >= m:
                 raise AssertionError(f"case {label}: window outside m={m}")
@@ -395,41 +453,56 @@ def symv_phase(device, m_main: int, timed: bool, m_f64: int = N_F64):
                 m, m, generator=gen, dtype=dtype, device=device).tril_())
             x = torch.randn(*((m,) if nc == 1 else (m, nc)), generator=gen,
                             dtype=dtype, device=device)
-            ref = kernels._symv_lower_ref(b, x, t0)
-            out = kernels.symv_lower(b, x, t0=t0)
-            again = kernels.symv_lower(b, x, t0=t0)
+            kw, nb, corr = {}, 0, 0.0
+            if fused:
+                nb = NB_F - 1
+                uw = torch.zeros(m, 2 * NB_F, dtype=dtype, device=device)
+                for half in (0, NB_F):
+                    uw[w0:, half:half + nb] = torch.randn(
+                        m - w0, nb, generator=gen, dtype=dtype,
+                        device=device)
+                kw = {"panel": uw, "nb": nb}
+                g = uw[w0:].T @ x[w0:]
+                corr = 2 * nb * float(uw.abs().max()) * float(g.abs().max())
+            ws = kernels.symv_workspace(b, t0, nc, 2 * NB_F if fused else 0)
+            ref = kernels._symv_lower_ref(b, x, t0, **kw)
+            out = kernels.symv_lower(b, x, t0=t0, **kw)
+            again = kernels.symv_lower(b, x, t0=t0, **kw, **ws)
             _sync(device)
             err = float((out - ref).abs().max())
             low_max = float(torch.tril(b[w0:, w0:]).abs().max())
             # a sum of m products in another order: the rounding grows
-            # like sqrt(m), and a tile counted twice or dropped is O(1)
-            bound = (ERR_C[_name(dtype)] * m ** 0.5 * low_max
-                     * float(x.abs().max()))
+            # like sqrt(m), and a tile counted twice or dropped is O(1);
+            # the corrections add 2·nb products a row
+            bound = ERR_C[_name(dtype)] * (m ** 0.5 * low_max
+                                           * float(x.abs().max()) + corr)
             zeros_above = not bool(out[:w0].any())
             repeats = bool(torch.equal(out, again))
             del ref, again
             mw = m - w0
             row = {"name": "symv_lower", "case": label,
                    "dtype": _name(dtype), "m": m, "t0": t0, "nc": nc,
-                   "max_abs_err": err, "bound": bound,
-                   "zeros_above_window": zeros_above,
+                   "fused_panel_columns": nb, "max_abs_err": err,
+                   "bound": bound, "zeros_above_window": zeros_above,
                    "bitwise_repeat": repeats}
             if timed:
-                row["ms"] = _time_ms(
-                    lambda: kernels.symv_lower(b, x, t0=t0), device)
-                row["plain_ms"] = _time_ms(
-                    lambda: kernels._symv_lower_ref(b, x, t0), device, 3)
+                # the call as the windowed column makes it: into a workspace
                 win, xw = b[w0:, w0:], x[w0:]
-                row["library_ms"] = _time_ms(
-                    (lambda: torch.mv(win, xw)) if nc == 1
-                    else (lambda: torch.matmul(win, xw)), device)
+                _times(row, lambda: kernels.symv_lower(b, x, t0=t0, **kw,
+                                                       **ws),
+                       lambda: kernels._symv_lower_ref(b, x, t0, **kw),
+                       (lambda: torch.mv(win, xw)) if nc == 1
+                       else (lambda: torch.matmul(win, xw)), device, 3)
+                # the triangle, X, Q, and the panel's filled columns and g
                 row.update(_bound(_name(dtype),
-                                  mw * (mw + 1) / 2 + 2 * m * nc,
-                                  2.0 * mw * mw * nc))
+                                  mw * (mw + 1) / 2 + 2 * m * nc
+                                  + 2 * nb * (mw + 1),
+                                  2.0 * mw * mw * nc + 4.0 * mw * nb))
             rows.append(_report(
                 row, err <= bound and zeros_above and repeats,
                 "disagrees with its plain version, is not zero above the "
                 "window or does not repeat bitwise"))
+            del b, x, ws, kw
     return rows
 
 
@@ -486,17 +559,15 @@ def rank2k_window_phase(device, m_main: int, timed: bool,
                    "max_abs_err": err, "bound": bound,
                    "outside_untouched": outside_ok}
             if timed:
-                # timed in place: eleven updates of N(0,1) data stay finite
-                row["ms"] = _time_ms(
-                    lambda: kernels.rank2k_update_window(b, u, w, t0=t0),
-                    device)
-                row["plain_ms"] = _time_ms(
-                    lambda: kernels._rank2k_window_ref(b, u, w, t0), device)
+                # timed in place: some hundreds of updates of N(0,1) data
+                # by the same product stay finite
                 p = torch.cat([u, w], dim=1)[w0:]
                 qt = torch.cat([w, u], dim=1)[w0:].T
                 win = b[w0:, w0:]
-                row["library_ms"] = _time_ms(
-                    lambda: win.addmm_(p, qt, alpha=-1), device)
+                _times(row,
+                       lambda: kernels.rank2k_update_window(b, u, w, t0=t0),
+                       lambda: kernels._rank2k_window_ref(b, u, w, t0),
+                       lambda: win.addmm_(p, qt, alpha=-1), device)
                 row.update(_bound(_name(dtype),
                                   2 * mw * mw + 2 * mw * 2 * nb,
                                   2.0 * mw * mw * 2 * nb))
@@ -801,13 +872,16 @@ def trd_profile(device, n: int) -> None:
                       if e.device_type == DeviceType.CUDA]
             busy = sum(e.device_time_total for e in events) / 1e6
             count = sum(e.count for e in events)
-            top = sorted(events, key=lambda e: -e.device_time_total)[:8]
+            top = sorted(events, key=lambda e: -e.device_time_total)[:12]
             wall = walls[impl][1]
+            columns = expected_launches_windowed(n)["symv_lower"]
             print(f"trd-profile: {impl} n={n} wall unprofiled "
                   f"{walls[impl]} s (cold, warm), profiled "
                   f"{info.elapsed:.4f} s, device busy {busy:.4f} s, idle "
                   f"share of the warm unprofiled wall "
-                  f"{1 - busy / wall:.4f}, kernels {count}", flush=True)
+                  f"{1 - busy / wall:.4f}, kernels {count} "
+                  f"({count / columns:.2f} a column of the {columns} of "
+                  f"full panels)", flush=True)
             for e in top:
                 print(f"trd-profile:   {e.device_time_total / 1e3:10.3f} ms "
                       f"{e.count:8d} x {e.key[:90]}", flush=True)
@@ -820,12 +894,14 @@ def _kernels_line(rows, launches) -> dict:
     ``f64`` object of the same kernel at its shape on the f64 windowed
     path."""
     main_case = {"sub_matmul": ("wy_windowed_path", "wy"),
-                 "symv_lower": ("first_column", "f64_path_first_column"),
+                 "symv_lower": ("fused_first_column",
+                                "fused_f64_path_first_column"),
                  "rank2k_update_window": ("first_panel",
                                           "f64_path_first_panel")}
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    f64_keys = ("ms", "bound_ms", "library_ms", "max_abs_err")
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")
+    f64_keys = ("ms", "device_ms", "bound_ms", "library_ms",
+                "library_device_ms", "max_abs_err")
     out = []
     for name, meta in KERNELS.items():
         row, row64 = (next(r for r in rows if r["name"] == name
@@ -872,14 +948,17 @@ def main() -> int:
     only_kernels = sys.argv[1:2] == ["--kernels"]
     if only_kernels:
         print(_build.resource_usage(), flush=True)
-
-    rows = _timed_phase("kernels sub_matmul", kernel_phase, device, N_SLICE,
-                        True)
-    rows += _timed_phase("kernels same_bits", same_bits_phase, device)
-    rows += _timed_phase("kernels symv_lower", symv_phase, device,
-                         N_WINDOWED, True)
-    rows += _timed_phase("kernels rank2k_update_window",
-                         rank2k_window_phase, device, N_WINDOWED, True)
+    # --kernels NAME ...: the phases of the named kernels only
+    names = set(sys.argv[2:] if only_kernels else ()) or set(KERNELS)
+    phases = (("sub_matmul", "sub_matmul", kernel_phase, (N_SLICE, True)),
+              ("same_bits", "sub_matmul", same_bits_phase, ()),
+              ("symv_lower", "symv_lower", symv_phase, (N_WINDOWED, True)),
+              ("rank2k_update_window", "rank2k_update_window",
+               rank2k_window_phase, (N_WINDOWED, True)))
+    rows = []
+    for label, kernel, phase, args in phases:
+        if kernel in names:
+            rows += _timed_phase(f"kernels {label}", phase, device, *args)
     torch.cuda.empty_cache()
     if only_kernels:
         print(gpu)

@@ -39,8 +39,10 @@ _ARGTYPES = {
     # (m, w, k, b, ldb, p, ldp, q, ldq, stream)
     "eigenexa_sub_matmul_window": [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD,
                                    _P],
-    # (m, w, nc, b, ldb, x, ldx, q, ldq, scratch, stream)
-    "eigenexa_symv_lower": [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD, _P, _P],
+    # (m, w, nc, b, ldb, x, ldx, q, ldq, scratch, scratch_len, panel, ldp,
+    #  half, nb, stream)
+    "eigenexa_symv_lower": [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD, _P, _LD,
+                            _P, _LD, _I, _I, _P],
 }
 
 _lib = None

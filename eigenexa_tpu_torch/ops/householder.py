@@ -13,10 +13,12 @@ panels on ONE working matrix:
 * **windowed**: rows keep their global indices in the fixed buffer.  A
   window ``[t0·TM:, t0·TM:]`` that shrinks group by group bounds the work
   to the live trailing block.  The panel matvec reads only the window's
-  lower triangle (``kernels.symv_lower``), the trailing update runs in
-  place on the window (``kernels.rank2k_update_window``), and each panel's
-  reflectors are stored in its own dead columns of the working matrix, so
-  the reduction needs one n×n buffer, as the reference does.
+  lower triangle and applies the panel's corrections in the same call
+  (``kernels.symv_lower``, into one workspace per reduction), the
+  trailing update runs in place on the window
+  (``kernels.rank2k_update_window``), and each panel's reflectors are
+  stored in its own dead columns of the working matrix, so the reduction
+  needs one n×n buffer, as the reference does.
 
 The JAX package's scan bucketing, up-left roll, per-group jit, donation
 decorators and the padding of n to a multiple of TM exist only for XLA and
@@ -38,7 +40,7 @@ import torch
 
 from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
                                             rank2k_update_window, symv_lower,
-                                            wy_apply)
+                                            symv_workspace, wy_apply)
 
 # dispatch override for tridiagonalize(impl="auto"), settable by assignment:
 # "rolled" / "windowed" force; "auto" is rolled.  No memory rule picks the
@@ -178,11 +180,14 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _panel_win(b: torch.Tensor, j0: int, t0: int, nb: int):
+def _panel_win(b: torch.Tensor, j0: int, t0: int, nb: int, ws: dict):
     """latrd panel recurrence in the fixed-buffer windowed frame: rows keep
     their global indices, the panel's columns are j0 … j0+nb−1, the active
     window is ``[t0·TM:, t0·TM:]``, and the matvec reads only the window's
-    lower triangle (``kernels.symv_lower``).
+    lower triangle (``kernels.symv_lower``), which also applies the panel's
+    corrections ``−U·(Wᵀv) − W·(Uᵀv)`` in its summing pass.  U and W are
+    the two halves of one (n, 2nb) buffer; ``ws`` is the matvec's
+    workspace (``kernels.symv_workspace``), made once per reduction.
 
     Rows of b above the current panel hold stale (already-processed) data,
     and so do the columns between the window's start and j0.  Every vector
@@ -190,19 +195,20 @@ def _panel_win(b: torch.Tensor, j0: int, t0: int, nb: int):
     pivot, and w is zeroed on rows < j0.  That also keeps the stale region
     from being written, so staleness stays bounded by the original matrix
     magnitude instead of compounding.  Rows [t0·TM, j0) of the matvec are
-    garbage by design and die in that cut.
+    garbage by design and die in that cut; rows above t0·TM are zero.
     """
     n = b.shape[0]
-    u_p = b.new_zeros((n, nb))
-    w_p = b.new_zeros((n, nb))
+    uw = b.new_zeros((n, 2 * nb))
+    u_p, w_p = uw[:, :nb], uw[:, nb:]
     tau_p = b.new_zeros((nb,))
     e_p = b.new_zeros((nb,))
     for jc in range(nb):
         j = j0 + jc
         col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
         v, tau, beta = householder_vector(col, j + 1)
-        q = symv_lower(b, v, t0=t0)
-        q = q - u_p @ (w_p.T @ v) - w_p @ (u_p.T @ v)
+        # q = A_cur·v: the window's matvec less the panel's first jc
+        # columns' corrections (U and W are zero above j0 >= t0·TM)
+        q = symv_lower(b, v, t0=t0, panel=uw, nb=jc, **ws)
         w = tau * q - (tau * tau * 0.5) * torch.dot(v, q) * v
         w[:j0] = 0
         u_p[:, jc] = v
@@ -251,10 +257,13 @@ def _tridiagonalize_windowed(b: torch.Tensor, nb: int) -> TridiagResult:
 
     group = _win_group_size(n, nb)
     groups, k = _win_schedule(n, nb, group)
+    # the matvec's q and scratch, sized for the first window; later, smaller
+    # windows use leading slices of them
+    ws = symv_workspace(b, panel_cols=2 * nb)
     for g in sorted(groups):
         t0 = (g * group) // WIN_TM
         for j0 in groups[g]:
-            u_p, w_p, tau_p, e_p = _panel_win(b, j0, t0, nb)
+            u_p, w_p, tau_p, e_p = _panel_win(b, j0, t0, nb, ws)
             rows = slice(j0, j0 + nb)
             d[rows] = (b.diagonal()[rows]
                        - 2.0 * (u_p[rows] * w_p[rows]).sum(dim=1))

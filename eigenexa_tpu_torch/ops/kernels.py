@@ -9,7 +9,11 @@ hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
   subtract-matmul ``OUT = B − P·Qᴴ`` of the rolled reduction's trailing
   update and of every back-transform block;
 * ``symv_lower``: the panel matvec of the windowed reduction, reading only
-  the lower triangle of the window ``[t0·TM:, t0·TM:]``;
+  the lower triangle of the window ``[t0·TM:, t0·TM:]``.  Handed the
+  panel ``[U | W]``, it also applies the column's corrections
+  ``−U·(Wᵀx) − W·(Uᵀx)`` in its summing pass, and handed a workspace
+  (``out=``, ``scratch=``; ``symv_workspace`` makes one per reduction)
+  it allocates nothing;
 * ``rank2k_update_window``: the windowed reduction's trailing update, in
   place on the same window.
 
@@ -41,7 +45,7 @@ LAUNCHES = {"sub_matmul": 0, "symv_lower": 0, "rank2k_update_window": 0}
 
 WIN_TM = 512       # window granularity TM of the windowed reduction
 SYMV_MAX_NC = 8    # most vectors one symv_lower call takes
-_SYMV_TILE = 64    # tile edge of csrc/symv_lower.cu (sizes its scratch)
+_SYMV_TILE = 64    # tile rows of csrc/symv_lower.cu (sizes its scratch)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -175,28 +179,100 @@ def _window_start(fn: str, b: torch.Tensor, t0: int) -> int:
     return w0
 
 
-def _symv_lower_ref(b, x, t0: int = 0):
+def _symv_lower_ref(b, x, t0: int = 0, panel=None, nb=None):
     """Plain PyTorch version of :func:`symv_lower`.  The symmetric window
     is rebuilt from its lower triangle alone, so whatever the upper
-    triangle holds never reaches the result."""
+    triangle holds never reaches the result.  With a panel the corrections
+    are taken as the windowed column took them before they were fused,
+    ``q − U @ (Wᵀ @ x) − W @ (Uᵀ @ x)``, on the window's rows."""
     w0 = t0 * WIN_TM
     low = torch.tril(b[w0:, w0:])
     full = low + torch.tril(low, diagonal=-1).T
     q = torch.zeros_like(x)
-    q[w0:] = full @ x[w0:]
+    xw = x[w0:]
+    q[w0:] = full @ xw
+    if panel is not None:
+        half = panel.shape[1] // 2
+        nb = half if nb is None else nb
+        u, w = panel[w0:, :nb], panel[w0:, half:half + nb]
+        q[w0:] = q[w0:] - u @ (w.T @ xw) - w @ (u.T @ xw)
     return q
 
 
-def symv_lower(b, x, t0: int = 0):
+def symv_scratch_numel(m: int, t0: int = 0, nc: int = 1,
+                       panel_cols: int = 0) -> int:
+    """Elements of ``scratch`` that a :func:`symv_lower` call on an (m, m)
+    matrix at window t0 with nc vectors and a panel ``panel_cols`` wide
+    needs: g = panelᵀ·x, then one slot per (source tile, vector, window
+    row), counted for tiles of ``_SYMV_TILE`` on either side, which is
+    enough for any tile width of the kernel.  A smaller window needs
+    fewer, so a buffer sized for the first window of a reduction serves
+    all of its later ones."""
+    mw = m - t0 * WIN_TM
+    return panel_cols + 2 * -(-mw // _SYMV_TILE) * nc * mw
+
+
+def symv_workspace(b, t0: int = 0, nc: int = 1, panel_cols: int = 0):
+    """``out=`` and ``scratch=`` for :func:`symv_lower` calls on B from
+    window t0 on, allocated once.  The plain version needs no scratch, so
+    on the CPU it is empty."""
+    m = b.shape[0]
+    numel = (0 if b.device.type == "cpu"
+             else symv_scratch_numel(m, t0, nc, panel_cols))
+    return {"out": b.new_empty((m,) if nc == 1 else (m, nc)),
+            "scratch": b.new_empty((numel,))}
+
+
+def _check_symv_workspace(b, x, panel, out, scratch):
+    """The workspace fits B and shares storage with no operand and not
+    with itself (each storage is looked up once: the column calls this
+    every time)."""
+    if out is None and scratch is None:
+        return
+    operands = {t.untyped_storage().data_ptr()
+                for t in (b, x, panel) if t is not None}
+    seen = set()
+    for name, ws in (("out", out), ("scratch", scratch)):
+        if ws is None:
+            continue
+        if ws.device != b.device or ws.dtype != b.dtype:
+            raise ValueError(f"symv_lower: {name} must be {b.dtype} on "
+                             f"{b.device}")
+        if not ws.is_contiguous():
+            raise ValueError(f"symv_lower: {name} must be contiguous")
+        storage = ws.untyped_storage().data_ptr()
+        if storage in operands or storage in seen:
+            raise ValueError(f"symv_lower: {name} shares storage with an "
+                             "operand or the other workspace tensor")
+        seen.add(storage)
+    if out is not None and out.shape != x.shape:
+        raise ValueError(f"symv_lower: out{tuple(out.shape)} is not shaped "
+                         f"like X{tuple(x.shape)}")
+
+
+def symv_lower(b, x, t0: int = 0, *, panel=None, nb=None, out=None,
+               scratch=None):
     """``Q = B·X`` for symmetric B stored full, reading only the lower
     triangle of the window ``[t0·TM:, t0·TM:]`` (TM = ``WIN_TM``).
 
     B: (m, m), any m; X: (m,) or (m, nc) with nc ≤ ``SYMV_MAX_NC`` (the
-    band-2 pair recurrence passes nc = 2).  Returns a new tensor shaped
-    like X.  Rows above the window come back zero; inside the window row i
-    is Σ_j S[i, j]·X[j] over the window's columns only, S the window's
-    lower triangle mirrored.  The sum runs in a fixed order with no
-    atomics, so two calls on equal inputs are bitwise equal.
+    band-2 pair recurrence passes nc = 2).  Rows above the window come back
+    zero; inside the window row i is Σ_j S[i, j]·X[j] over the window's
+    columns only, S the window's lower triangle mirrored.  The sum runs in
+    a fixed order with no atomics, so two calls on equal inputs are bitwise
+    equal.
+
+    ``panel`` (X a vector only): an (m, 2·h) buffer ``[U | W]`` of the
+    Householder panel, of which the first ``nb`` columns of each half are
+    used (all h by default).  Then the window's rows of Q also lose the
+    panel's corrections, ``U·(Wᵀx) + W·(Uᵀx)``, with every product over the
+    window's rows: on the card the summing pass applies them, after one
+    ``torch.mv`` for g = [Uᵀx; Wᵀx].
+
+    ``out`` (shaped like X) and ``scratch`` (1-D, at least
+    :func:`symv_scratch_numel` elements; see :func:`symv_workspace`) are
+    the workspace: given, the call allocates nothing and returns ``out``;
+    left out, it allocates them.
     """
     w0 = _window_start("symv_lower", b, t0)
     m = b.shape[0]
@@ -211,31 +287,63 @@ def symv_lower(b, x, t0: int = 0):
         raise ValueError("symv_lower: operands on different devices")
     if b.dtype != x.dtype:
         raise TypeError("symv_lower: operands of different dtypes")
+    half = 0
+    if panel is not None:
+        if x.ndim != 1:
+            raise ValueError("symv_lower: a panel takes one vector X")
+        if (panel.ndim != 2 or panel.shape[0] != m
+                or panel.shape[1] % 2):
+            raise ValueError(f"symv_lower: panel{tuple(panel.shape)} is not "
+                             f"an (m, 2h) buffer [U | W] for m = {m}")
+        half = panel.shape[1] // 2
+        nb = half if nb is None else nb
+        if not 0 <= nb <= half:
+            raise ValueError(f"symv_lower: nb = {nb} outside 0..{half}")
+        if panel.device != b.device or panel.dtype != b.dtype:
+            raise TypeError("symv_lower: the panel's dtype or device is not "
+                            "B's")
+    _check_symv_workspace(b, x, panel, out, scratch)
     if b.device.type == "cpu":
-        return _symv_lower_ref(b, x, t0)
+        q = _symv_lower_ref(b, x, t0, panel, nb)
+        return q if out is None else out.copy_(q)
     _check_kernel_dtype("symv_lower", b)
     ldb = _ld(b, "B", "symv_lower")
     ldx = x.stride(0) if x.ndim == 1 else _ld(x, "X", "symv_lower")
     if ldx < 1:
         raise ValueError(f"symv_lower: X needs a positive row stride, got "
                          f"strides {tuple(x.stride())}")
-    q = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    mw = m - w0
-    tiles = -(-mw // _SYMV_TILE)
-    # partial sums, one slot per (source tile, vector, window row): each is
-    # written by exactly one block and summed in tile order by the second
-    # pass.  The buffer goes back to PyTorch's caching allocator when this
-    # function returns; whoever gets it next on this stream runs after the
-    # two passes.
-    scratch = torch.empty((tiles, nc, mw), dtype=x.dtype, device=x.device)
+    ldp = 0 if panel is None else _ld(panel, "panel", "symv_lower")
+    need = symv_scratch_numel(m, t0, nc, 2 * half)
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if scratch is None:
+        # g, then partial sums, one slot per (source tile, vector, window
+        # row): each is written by exactly one block and summed in a fixed
+        # order by the second pass.  A buffer made here goes back to
+        # PyTorch's caching allocator when this function returns; whoever
+        # gets it next on this stream runs after the two passes.
+        scratch = torch.empty((need,), dtype=x.dtype, device=x.device)
+    elif scratch.numel() < need:
+        raise ValueError(f"symv_lower: scratch holds {scratch.numel()} "
+                         f"elements, the call needs {need}")
     fn = getattr(load_library(), "eigenexa_symv_lower_" + _SUFFIX[b.dtype])
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(m, w0, nc, b.data_ptr(), ldb, x.data_ptr(), ldx,
-                 q.data_ptr(), nc, scratch.data_ptr(), stream)
+    if panel is not None:
+        # g = [Uᵀx; Wᵀx] over the window, at the front of the scratch
+        torch.mv(panel[w0:].T, x[w0:], out=scratch[:2 * half])
+    args = (m, w0, nc, b.data_ptr(), ldb, x.data_ptr(), ldx, out.data_ptr(),
+            nc, scratch.data_ptr(), scratch.numel(),
+            None if panel is None else panel.data_ptr(), ldp, half,
+            0 if panel is None else nb)
+    # the entry point launches on the current device; the device guard is
+    # entered only where B's card is not current already
+    if b.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(b.device).cuda_stream)
+    else:
+        with torch.cuda.device(b.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "symv_lower")
     LAUNCHES["symv_lower"] += 1
-    return q
+    return out
 
 
 def _rank2k_window_ref(b, u, w, t0: int = 0):

@@ -10,7 +10,8 @@ Kernel tolerance: max abs error ≤ c·(max|B| + k·max|P|·max|Q|), c = 1e-5
 in f32 and 1e-13 in f64 — the kernel and its plain version differ only in
 summation order.  For ``symv_lower`` the bound is c·√m·max|B|·max|X|: a sum
 of m products whose rounding grows like √m, far below the O(1) error of a
-tile dropped or counted twice.
+tile dropped or counted twice; with a panel it adds c·2nb·max|P|·max|g|
+for the corrections' dots.
 """
 
 import numpy as np
@@ -186,6 +187,62 @@ def test_symv_lower_matches_plain(cuda, dtype, m, t0, nc, off):
     assert float((q - ref).abs().max()) <= bound
     assert not bool(q[:w0].any())              # zeros above the window
     assert torch.equal(q, q2)                  # fixed summation order
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,t0,off", [(1837, 1, 0), (1024, 0, 0),
+                                      (1300, 2, 0), (1200, 1, 5),
+                                      (515, 1, 0)])
+def test_fused_symv_lower_matches_plain(cuda, dtype, m, t0, off):
+    """The form the windowed column calls: one vector and a panel [U | W]
+    of 64 columns a half, 63 filled, zero above the window, held against
+    the plain version (the symv, then ``q - U (Wᵀx) - W (Uᵀx)``) at the
+    ragged, offset and late-window cases above.  A workspace sized for
+    the whole matrix and filled with NaN, reused twice, gives the bits of
+    a call that makes its own."""
+    nb, half = 63, 64
+    big = _dirty_symmetric(51, m + off, dtype, cuda)
+    b = big[off:, off:]
+    x = _randn(53, m, dtype=dtype, device=cuda)
+    w0 = t0 * tk.WIN_TM
+    # a view one column into its buffer: no 16-byte-aligned rows
+    panel = _randn(54, m, 2 * half + 3, dtype=dtype, device=cuda)[:, 1:-2]
+    panel[:w0] = 0
+    panel[:, nb] = float("nan")                 # unfilled: never read
+    panel[:, half + nb] = float("nan")
+    kw = {"panel": panel, "nb": nb}
+    ws = tk.symv_workspace(b, panel_cols=2 * half)
+    ws["out"].fill_(float("nan"))
+    ws["scratch"].fill_(float("nan"))
+    before = tk.LAUNCHES["symv_lower"]
+    fresh = tk.symv_lower(b, x, t0=t0, **kw)
+    reused = tk.symv_lower(b, x, t0=t0, **kw, **ws)
+    again = tk.symv_lower(b, x, t0=t0, **kw, **ws).clone()
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["symv_lower"] == before + 3
+    assert reused is ws["out"]
+    ref = tk._symv_lower_ref(b, x, t0, **kw)
+    u, w = panel[w0:, :nb], panel[w0:, half:half + nb]
+    g = torch.cat([u.T @ x[w0:], w.T @ x[w0:]])
+    bound = ERR_C[dtype] * (m ** 0.5 * float(torch.tril(b).abs().max()
+                                             * x.abs().max())
+                            + 2 * nb * float(torch.cat([u, w]).abs().max()
+                                             * g.abs().max()))
+    assert float((fresh - ref).abs().max()) <= bound
+    assert not bool(fresh[:w0].any())
+    assert torch.equal(fresh, again) and torch.equal(reused, again)
+
+
+def test_symv_lower_refuses_a_short_scratch(cuda):
+    b = _dirty_symmetric(61, 700, torch.float32, cuda)
+    x = _randn(62, 700, dtype=torch.float32, device=cuda)
+    need = tk.symv_scratch_numel(700, 0, 1)
+    before = dict(tk.LAUNCHES)
+    with pytest.raises(ValueError, match="scratch holds"):
+        tk.symv_lower(b, x, scratch=torch.empty(need - 1, device=cuda))
+    # a smaller window needs less: the first window's buffer serves it
+    assert tk.symv_scratch_numel(700, 1, 1) < need
+    assert tk.LAUNCHES == before
 
 
 def test_symv_lower_takes_a_strided_vector(cuda):

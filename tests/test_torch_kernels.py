@@ -321,6 +321,108 @@ def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
     assert lines[-1] == "ALL OK" and len(lines) == (11 if f64 else 17)
 
 
+SYMV_MUTANTS = {
+    # the wait that lands a tile's copies before the tile is read
+    "dropped_wait": ("    cp_async_wait<kS - 2>();\n", ""),
+    # the last tile of every block
+    "dropped_last_tile": ("for (int k = 0; k < count; ++k) {",
+                          "for (int k = 0; k + 1 < count; ++k) {"),
+}
+
+
+def _symv_emu_source(mutant=None) -> str:
+    """csrc/symv_lower.cu rewritten for the stand-in runtime: the two
+    launches, the inline PTX of cp.async (copies, commit, wait) and the
+    dynamic shared memory; `mutant` names an edit of SYMV_MUTANTS."""
+    import re
+
+    src = (REPO / "eigenexa_tpu_torch" / "csrc" / "symv_lower.cu").read_text()
+    if mutant is not None:
+        old, new = SYMV_MUTANTS[mutant]
+        assert src.count(old) == 1, mutant
+        src = src.replace(old, new)
+    src, count = re.subn(
+        r"(symv_\w+_kernel<[^>]*>)<<<(\w+), ([^,]+), .*?, stream>>>\(\s*",
+        r"emu_launch(\1, \2, \3, ", src, flags=re.S)
+    assert count == 2                      # one launch for each pass
+    src, count = re.subn(
+        r'asm volatile\("cp\.async\.\w+\.shared\.global \[%0\], \[%1\], '
+        r'(\d+);\\n"\s*::\s*"r"\(smem_u32\((\w+)\)\),\s*"l"\((\w+)\)\);',
+        r"emu_cp_async(\2, \3, \1);", src)
+    assert count == 3                      # 16-, 8- and 4-byte copies
+    src, count = re.subn(r'asm volatile\("cp\.async\.commit_group;\\n"[^;]*;',
+                         "emu_cp_async_commit();", src)
+    assert count == 1
+    src, count = re.subn(
+        r'asm volatile\("cp\.async\.wait_group %0;\\n"\s*::\s*"n"\((\w+)\)'
+        r'[^;]*;', r"emu_cp_async_wait(\1);", src)
+    assert count == 1
+    src, count = re.subn(
+        r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
+        r"unsigned char* const \1 = emu_dynamic_smem;", src)
+    assert count == 1 and "asm" not in src
+    return src
+
+
+@pytest.fixture(scope="module")
+def symv_emu(tmp_path_factory):
+    """csrc/symv_lower.cu built by the host compiler against the stand-in
+    runtime of tests/cuda_emu, with symv_main.cpp as its main: the source
+    as it is, and each mutant of SYMV_MUTANTS, all compiled at once."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ with C++20")
+    emu = REPO / "tests" / "cuda_emu"
+    root = tmp_path_factory.mktemp("symv_emu")
+    procs = {}
+    for name in (None, *SYMV_MUTANTS):
+        d = root / (name or "source")
+        d.mkdir()
+        (d / "kern.cpp").write_text(_symv_emu_source(name))
+        procs[name] = subprocess.Popen(
+            ["g++", "-std=c++20", "-O1", f"-I{emu}", f"-I{d}",
+             "-Wno-unknown-pragmas", "-o", str(d / "emu"),
+             str(emu / "symv_main.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for name, proc in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, (name, err)
+    return {name: root / (name or "source") / "emu" for name in procs}
+
+
+def _run_symv_emu(binary, dtype: str, sms: int):
+    return subprocess.run([str(binary), dtype], capture_output=True,
+                          text=True, timeout=120,
+                          env=dict(os.environ, EMU_SMS=str(sms)))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_symv_source_matches_a_plain_loop_on_cpu_threads(symv_emu, dtype):
+    """csrc/symv_lower.cu itself, run as fibers on a CPU thread (see
+    `symv_emu`): at aligned, ragged, odd-stride, offset, strided-X, 1 to 8
+    vector cases, with and without the fused panel (one wider than 64
+    columns), every row within the
+    summation-order bound of a long-double loop, zeros above the window,
+    nothing written past Q or the scratch, and a rerun on the reused
+    scratch bitwise equal.  With 2 and with 5 SMs the persistent grid
+    deals the tiles out otherwise; the bits must not move."""
+    runs = [_run_symv_emu(symv_emu[None], dtype, sms) for sms in (2, 5)]
+    for run in runs:
+        assert run.returncode == 0, (run.stdout, run.stderr)
+        lines = run.stdout.splitlines()
+        assert lines[-1] == "ALL OK" and len(lines) == 14
+    assert runs[0].stdout == runs[1].stdout
+
+
+@pytest.mark.parametrize("mutant", list(SYMV_MUTANTS))
+def test_symv_source_mutants_fail_on_cpu_threads(symv_emu, mutant):
+    """The stand-in has teeth: without the wait, a tile is read before its
+    copies land; without a block's last tile, rows lose a term."""
+    run = _run_symv_emu(symv_emu[mutant], "f32", 3)
+    assert run.returncode != 0 and run.stdout.splitlines()[-1] == "FAIL"
+
+
 def _chip_smoke():
     import importlib.util
 
@@ -353,16 +455,26 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
         assert len(rows) == 4
         assert {r["dtype"] for r in rows} == {"float32", "float64"}
     elif phase == "symv":
-        assert [c[1:] for c in cs.symv_cases(16384, 8192)["float64"]
-                if c[0].startswith("f64_path")] == [(8192, 0, 1),
-                                                     (8192, 8, 1)]
-        cases = [("first_column", 700, 0, 1), ("window", 700, 1, 1),
-                 ("pair", 700, 0, 2), ("ragged", 637, 1, 1)]
+        full = cs.symv_cases(16384, 8192)
+        assert [c[1:] for c in full["float64"] if "f64_path" in c[0]] == [
+            (8192, 0, 1, False), (8192, 8, 1, False), (8192, 0, 1, True),
+            (8192, 8, 1, True)]
+        # the fused form at the windows of the f32 solve's groups
+        assert [c[1:] for c in full["float32"] if c[4]] == [
+            (16384, 0, 1, True), (16384, 16, 1, True), (16384, 28, 1, True)]
+        cases = [("first_column", 700, 0, 1, False),
+                 ("window", 700, 1, 1, False), ("pair", 700, 0, 2, False),
+                 ("ragged", 637, 1, 1, False),
+                 ("fused_window", 700, 1, 1, True)]
         monkeypatch.setattr(cs, "symv_cases", lambda m, m64: {
             "float32": cases,
-            "float64": cases + [("f64_path_window", m64, 1, 1)]})
+            "float64": cases + [("f64_path_window", m64, 1, 1, False),
+                                ("fused_f64_path_first_column", m64, 0, 1,
+                                 True)]})
         rows = cs.symv_phase(cpu, 700, timed=False, m_f64=600)
-        assert len(rows) == 9
+        assert len(rows) == 12
+        assert sum(r["fused_panel_columns"] == cs.NB_F - 1
+                   for r in rows) == 3
     else:
         names = {dtype: [c[0] for c in cases] for dtype, cases in
                  cs.rank2k_window_cases(16384, 8192).items()}

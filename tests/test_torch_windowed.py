@@ -90,6 +90,100 @@ def test_symv_lower_reads_only_the_lower_triangle(nc):
     assert np.all(q[:w0] == 0)
 
 
+def _column_panel(m, j0, jc, nb, seed):
+    """A panel buffer [U | W] (m, 2nb) f32 as the windowed column holds it
+    after jc columns from j0: U's column l zero above its pivot j0+l+1, W
+    zero above j0, columns jc… not yet filled; and the next v, zero above
+    its pivot j0+jc+1."""
+    r = rng(seed)
+    uw = np.zeros((m, 2 * nb), np.float32)
+    for l in range(jc):
+        uw[j0 + l + 1:, l] = r.standard_normal(m - j0 - l - 1) / 8
+        uw[j0:, nb + l] = r.standard_normal(m - j0) / 8
+    v = np.zeros(m, np.float32)
+    v[j0 + jc + 1:] = r.standard_normal(m - j0 - jc - 1)
+    return uw, v
+
+
+@pytest.mark.parametrize("t0", [0, 1])
+def test_fused_symv_matches_the_jax_column(t0):
+    """The plain fused form (the CPU path of the windowed column) against
+    the JAX package's column: the Pallas symv in interpret mode, then
+    ``q - u @ (w.T @ v) - w @ (u.T @ v)`` over all rows.  Both are zero
+    above the window (U and W vanish above j0 >= t0·TM).  f32, tolerance
+    5e-6·max|ref| as the symv tests: sums in another order.  A workspace
+    handed in is what comes back, with the same values."""
+    m, nb, jc = 2 * TM, 64, 40
+    w0 = t0 * TM
+    j0 = w0 + 8
+    a = _sym32(m, 300 + t0)
+    uw, v = _column_panel(m, j0, jc, nb, 301 + t0)
+    u, w = jnp.asarray(uw[:, :nb]), jnp.asarray(uw[:, nb:])
+    jv = jnp.asarray(v)
+    ref = n_(pk.symv_lower(jnp.asarray(a), jv, t0=t0, interpret=True)
+             - u @ (w.T @ jv) - w @ (u.T @ jv))
+    before = dict(tk.LAUNCHES)
+    got = n_(tk.symv_lower(t(a), t(v), t0=t0, panel=t(uw), nb=jc))
+    assert tk.LAUNCHES == before
+    np.testing.assert_allclose(got[w0:], ref[w0:],
+                               atol=5e-6 * np.abs(ref).max())
+    assert np.all(got[:w0] == 0) and np.all(ref[:w0] == 0)
+    ws = tk.symv_workspace(t(a), panel_cols=2 * nb)
+    out = tk.symv_lower(t(a), t(v), t0=t0, panel=t(uw), nb=jc, **ws)
+    assert out is ws["out"]
+    np.testing.assert_array_equal(n_(out), got)
+
+
+def test_fused_symv_plain_version_keeps_todays_order():
+    """The plain fused form is the column's former two lines, on the
+    window's rows: the symv, then ``q - U @ (Wᵀ @ v) - W @ (Uᵀ @ v)``
+    over all n rows and all filled columns.  f64; the plain form leaves out
+    rows and columns that hold zeros, which moves only the rounding
+    (1e-14·max|q|)."""
+    m, nb, jc, t0 = 700, 16, 9, 1
+    j0 = TM + 20
+    a = sym(m, 302)
+    uw, v = (x.astype(np.float64) for x in _column_panel(m, j0, jc, nb, 303))
+    u, w = uw[:, :jc], uw[:, nb:nb + jc]
+    q = tk._symv_lower_ref(t(a), t(v), t0)
+    want = n_(q - t(u) @ (t(w).T @ t(v)) - t(w) @ (t(u).T @ t(v)))
+    got = n_(tk.symv_lower(t(a), t(v), t0=t0, panel=t(uw), nb=jc))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-14 * np.abs(want).max())
+
+
+def test_nan_input_poisons_the_windowed_reduction_as_in_jax():
+    """A NaN inside the matrix reaches d and e through the fused matvec
+    at the same entries as through the JAX package's column."""
+    n = 700
+    a = _sym32(n, 304)
+    a[600, 650] = a[650, 600] = np.nan
+    jr = jh.tridiagonalize(jnp.asarray(a), nb=64, impl="windowed")
+    tr = th.tridiagonalize(t(a), nb=64, impl="windowed")
+    for name in ("d", "e"):
+        got, ref = np.isnan(n_(getattr(tr, name))), np.isnan(
+            n_(getattr(jr, name)))
+        assert got.any()
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_symv_workspace_and_panel_are_checked():
+    b, x = t(sym(600, 35)), t(rng(36).standard_normal(600))
+    uw = t(np.zeros((600, 8)))
+    with pytest.raises(ValueError, match="one vector"):
+        tk.symv_lower(b, t(np.zeros((600, 2))), panel=uw)
+    with pytest.raises(ValueError, match="2h"):
+        tk.symv_lower(b, x, panel=uw[:, :7])
+    with pytest.raises(ValueError, match="nb"):
+        tk.symv_lower(b, x, panel=uw, nb=5)
+    with pytest.raises(ValueError, match="shaped like"):
+        tk.symv_lower(b, x, out=t(np.zeros(599)))
+    with pytest.raises(ValueError, match="storage"):
+        tk.symv_lower(b, x, out=x)
+    assert tk.symv_scratch_numel(600, 1, 1, 8) == 8 + 2 * 2 * 88
+    assert tk.symv_workspace(b)["scratch"].numel() == 0   # plain: none
+
+
 # ---------------------------------------------------------------------------
 # (b) rank2k_update_window
 # ---------------------------------------------------------------------------

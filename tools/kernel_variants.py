@@ -3,11 +3,12 @@
 Two builds of a kernel compare only within one run on one card, so this
 script makes each variant as a copy of the port (``chip_smoke.py`` and
 ``eigenexa_tpu_torch/``) in a temporary directory, edits the copy's
-``csrc/sub_matmul.cu``, runs ``python3 chip_smoke.py --kernels`` there (its
-own build, its own checks) and prints, for each variant, the exit code,
-ptxas's line for every kernel of the edited source, and one short line per
-``kernel`` case of ``sub_matmul`` and ``rank2k_update_window``, f32 and
-f64.  The checkout itself is never edited.
+``csrc/sub_matmul.cu`` (or, after ``--source symv_lower.cu``, that
+source), runs ``python3 chip_smoke.py --kernels`` there (its own build, its
+own checks) and prints, for each variant, the exit code, ptxas's line for
+every kernel of the edited source, and one short line per ``kernel`` case
+of the kernels of that source, f32 and f64.  The checkout itself is never
+edited.
 
     python3 tools/kernel_variants.py base slice16:kBigSlice=16 \\
         rule1:kBigTilesPerSm=1 base
@@ -21,7 +22,8 @@ run's own spread.  The full output of each variant goes to
 ``<out>/variant_<position>_<name>.txt``; ``--out DIR`` before the variants
 names the directory (default ``build/variants``).
 
-``--sweep`` as the first argument (before ``--out``) runs, in place of
+``--source NAME`` (before ``--out``) picks the source under ``csrc/``
+that the variants edit.  ``--sweep`` as the first argument runs, in place of
 ``chip_smoke.py --kernels``, a sweep over f32 squares m = 512 ... 4096 at
 k = 128, in place: 50 launches between two CUDA events, the median of 7
 such batches, so that the host's launch overhead does not hide a kernel of
@@ -41,7 +43,9 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-SOURCE = Path("eigenexa_tpu_torch") / "csrc" / "sub_matmul.cu"
+CSRC = Path("eigenexa_tpu_torch") / "csrc"
+SOURCE_KERNELS = {"sub_matmul.cu": ("sub_matmul", "rank2k_update_window"),
+                  "symv_lower.cu": ("symv_lower",)}
 SWEEP = """
 import statistics, torch
 from eigenexa_tpu_torch.ops import kernels
@@ -87,21 +91,22 @@ def _edited(text: str, consts: dict, replace) -> str:
 
 
 def _run_variant(position: int, name: str, consts: dict, replace,
-                 sweep, out_dir: Path) -> None:
+                 sweep, out_dir: Path, source: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         shutil.copy(REPO / "chip_smoke.py", root)
         shutil.copytree(REPO / "eigenexa_tpu_torch",
                         root / "eigenexa_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
-        src = root / SOURCE
+        src = root / CSRC / source
         src.write_text(_edited(src.read_text(), consts, replace))
         if sweep:
             dtype, sizes = SWEEP_SIZES[sweep]
             command = ["-c", f"import torch\nDTYPE = {dtype}\n"
                        f"SIZES = {sizes}\n{SWEEP}"]
         else:
-            command = ["chip_smoke.py", "--kernels"]
+            command = ["chip_smoke.py", "--kernels",
+                       *SOURCE_KERNELS[source]]
         proc = subprocess.run([sys.executable, *command], cwd=root,
                               capture_output=True, text=True)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -109,7 +114,7 @@ def _run_variant(position: int, name: str, consts: dict, replace,
         proc.stdout + proc.stderr)
     print(f"variant {name} {json.dumps(consts)} replace="
           f"{replace is not None}: exit {proc.returncode}", flush=True)
-    _print_summary(proc.stdout)
+    _print_summary(proc.stdout, source)
     print("".join(f"  {line}\n" for line in proc.stdout.splitlines()
                   if line.startswith("sweep ")), end="")
     if proc.returncode != 0:
@@ -117,24 +122,25 @@ def _run_variant(position: int, name: str, consts: dict, replace,
         print(f"  failed with: {tail[:600]}")
 
 
-def _print_summary(stdout: str) -> None:
+def _print_summary(stdout: str, source: str) -> None:
     """ptxas's figures for the edited source, and its kernel cases."""
     lines = stdout.splitlines()
     in_source = False
     for i, line in enumerate(lines):
         if line.startswith("resource usage of "):
-            in_source = SOURCE.name in line
+            in_source = source in line
         if in_source and "Used" in line and "registers" in line:
-            kernel = re.search(r"sub_matmul_kernel\w*", lines[i - 2])
+            kernel = re.search(r"(sub_matmul|symv)_\w*kernel\w*",
+                               lines[i - 2])
             spill = lines[i - 1].strip()
             print(f"  {kernel.group(0)[:36] if kernel else '?'}: "
                   f"{line.split(':', 1)[1].strip()}; {spill}")
         if line.startswith("kernel "):
             row = json.loads(line[len("kernel "):])
-            if row["name"] == "symv_lower":
+            if row["name"] not in SOURCE_KERNELS[source]:
                 continue
-            keys = ("ms", "library_ms", "bound_ms", "max_abs_err",
-                    "bitwise_equal", "bitwise_plain")
+            keys = ("ms", "device_ms", "library_device_ms", "bound_ms",
+                    "max_abs_err", "bitwise_equal", "bitwise_plain")
             print(f"  {row['name']} {row['case']} {row['dtype']} "
                   f"m={row['m']}: "
                   + " ".join(f"{k}={row[k]:.6g}" if isinstance(
@@ -146,6 +152,12 @@ def main(argv) -> int:
     variants = []
     args = list(argv)
     sweep = args.pop(0) if args[:1] in (["--sweep"], ["--sweep64"]) else None
+    source = "sub_matmul.cu"
+    if args[:1] == ["--source"]:
+        source = args[1]
+        del args[:2]
+    if source not in SOURCE_KERNELS:
+        raise SystemExit(f"--source: one of {sorted(SOURCE_KERNELS)}")
     out_dir = REPO / "build" / "variants"
     if args[:1] == ["--out"]:
         out_dir = Path(args[1]).resolve()
@@ -163,7 +175,8 @@ def main(argv) -> int:
         print(__doc__)
         return 2
     for position, (name, consts, replace) in enumerate(variants):
-        _run_variant(position, name, consts, replace, sweep, out_dir)
+        _run_variant(position, name, consts, replace, sweep, out_dir,
+                     source)
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
