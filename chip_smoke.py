@@ -9,7 +9,8 @@ result line:
 
 1. device   — a CUDA card is required (no CPU fallback);
 2. build    — builds the hand-written kernels from the checkout's sources
-              (``csrc/sub_matmul.cu``, ``csrc/symv_lower.cu``);
+              (``csrc/sub_matmul.cu``, ``csrc/symv_lower.cu``,
+              ``csrc/sturm.cu``);
 3. kernels  — each kernel through its wrapper against its plain PyTorch
               version on the card, f32 and f64, one ``kernel`` line per
               case with the error and its bound, the kernel's and the plain
@@ -30,7 +31,15 @@ result line:
               makes its own), also in the fused form that the windowed
               column calls (a panel [U | W], its corrections applied in
               the summing pass); ``rank2k_update_window``
-              (everything outside the window bitwise untouched); and
+              (everything outside the window bitwise untouched);
+              ``sturm_bisect`` against its plain version bit for bit, band
+              1 and 2, bisection and refinement, on the tridiagonal and
+              pentadiagonal of Frank reductions: every index at n = 1024
+              (the plain version on the card), 32 indices spread over the
+              spectrum at n = 8192 (the plain version on the host's CPU:
+              on the card its eager loop would issue millions of
+              launches), with the card's time at n = 8192 beside its
+              bound and ``torch.linalg.eigvalsh`` on the dense matrix; and
               ``same_bits``: a large ``sub_matmul`` call against the same
               product taken in row blocks, f32 (the launch rule sends the
               blocks to the other f32 kernel) and f64: bitwise equal.  Each
@@ -50,7 +59,19 @@ result line:
 6. windowed — the windowed reduction forced (``householder.TRD_IMPL``):
               ``eigen_s(frank(16384, float32))`` cold, then warm with the
               stage split and the peak device memory; the same checks, and
-              launch counts per solve of all three kernels.
+              launch counts per solve of all three kernels;
+7. sx       — ``eigen_sx``, the band-2 path, on Frank matrices: n = 8192
+              f32 rolled twice (bitwise equal) and windowed once, n = 8192
+              f64 rolled once, n = 16384 f32 windowed once; each with its
+              checks, PRD-BLK / D&C / TRDBAK split, peak device memory and
+              launch counts (``symv_lower`` nc = 2 a pair,
+              ``rank2k_update_window`` a panel, ``sub_matmul``);
+8. modes    — ``eigen_s`` and ``eigen_sx`` at Frank n = 8192 f64 in modes
+              A, N and X: the strict w_test never a hard FAIL, mode N's w
+              within that test of mode A's, ``sturm_bisect`` once a solve;
+              then mode R: each reduction's bands saved to a temporary
+              directory and solved from there, bitwise equal to the solve
+              of the same arrays.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last three lines are the kernels JSON object, the
@@ -72,14 +93,17 @@ turns, and ``tridiagonalize`` alone on a donated working matrix) and
 n = 8192 and 16384).
 
 ``python3 chip_smoke.py --trd-profile N`` profiles one reduction of each
-implementation at Frank n = N with ``torch.profiler`` and prints the
+implementation and each driver (``eigen_s``'s TRD-BLK, ``eigen_sx``'s
+PRD-BLK) at Frank n = N with ``torch.profiler`` and prints the
 device-busy time, the idle share and the leading kernels.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_SLICE = 8192
@@ -97,6 +121,12 @@ KERNELS = {
     "rank2k_update_window": {
         "source": "eigenexa_tpu_torch/csrc/sub_matmul.cu",
         "replaces": "eigenexa_tpu/ops/pallas_kernels.py:335"},
+    # no TPU kernel: the JAX package's Sturm recurrence is a lax.scan
+    # (band 2: sturm.py:145) inside lax.fori_loop, one XLA program
+    "sturm_bisect": {
+        "source": "eigenexa_tpu_torch/csrc/sturm.cu",
+        "replaces": "eigenexa_tpu/ops/sturm.py:51 (lax.scan, not a TPU "
+                    "kernel)"},
 }
 # error bound factor per dtype: only the summation order differs
 ERR_C = {"float32": 1e-5, "float64": 1e-13}
@@ -106,6 +136,14 @@ ERR_C = {"float32": 1e-5, "float64": 1e-13}
 # precision), FP64 on the FP64 Tensor Cores (DMMA)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+# FP64 on the CUDA cores (NVIDIA data sheet, H100 SXM): the Sturm recurrence
+# is scalar divisions, multiplies and subtractions, no tensor-core shape
+PEAK_FP64_CUDA_CORES = 34e12
+# f64 operations of one step of the Sturm recurrence (csrc/sturm.cu): band 1
+# two subtractions, one division, two comparisons; band 2 two divisions,
+# three multiplies, four subtractions, three comparisons
+STURM_STEP_OPS = {1: 5, 2: 12}
+N_STURM = 1024     # every index checked against the plain version on the card
 ITEMSIZE = {"float32": 4, "float64": 8}
 
 
@@ -115,6 +153,11 @@ def _gpu_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _want(**counts) -> dict:
+    """Launches per kernel of one solve: the named ones, 0 for the rest."""
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def expected_launches(n: int, nb_f: int = NB_F, nb_b: int = NB_B) -> int:
@@ -134,8 +177,38 @@ def expected_launches_windowed(n: int, nb_f: int = NB_F,
     symv_lower per column of every full panel, one rank2k_update_window
     per full panel, one sub_matmul per WY block of the back-transform."""
     panels = _full_panels(n, nb_f)
-    return {"symv_lower": panels * nb_f, "rank2k_update_window": panels,
-            "sub_matmul": -(-(n - 1) // nb_b)}
+    return _want(symv_lower=panels * nb_f, rank2k_update_window=panels,
+                 sub_matmul=-(-(n - 1) // nb_b))
+
+
+def _sx_panels(n: int, nb_f: int = NB_F) -> int:
+    """Panels of the band-2 reduction with a trailing update: the loop runs
+    while more than nb + 2 rows are live (ops/band.py)."""
+    return max(0, -(-(n - nb_f - 2) // nb_f))
+
+
+def expected_launches_sx(n: int, windowed: bool, trbak: bool = True,
+                         nb_f: int = NB_F, nb_b: int = NB_B) -> dict:
+    """Launches of one eigen_sx solve: rolled, one sub_matmul a panel;
+    windowed, one symv_lower (nc = 2) a reflector pair and one
+    rank2k_update_window a panel; one sub_matmul a WY block of the
+    back-transform where the mode runs it."""
+    panels = _sx_panels(n, nb_f)
+    back = -(-(n - 1) // nb_b) if trbak else 0
+    if windowed:
+        return _want(symv_lower=panels * nb_f // 2,
+                     rank2k_update_window=panels, sub_matmul=back)
+    return _want(sub_matmul=panels + back)
+
+
+def sx_last_t0(n: int, nb_f: int = NB_F) -> int:
+    """The window of the band-2 reduction's last panel with a trailing
+    update (``householder._win_group_size``'s groups)."""
+    from eigenexa_tpu_torch.ops import householder, kernels
+
+    group = householder._win_group_size(n, nb_f)
+    return ((_sx_panels(n, nb_f) - 1) * nb_f // group * group
+            // kernels.WIN_TM)
 
 
 def _reset_launches(kernels) -> None:
@@ -415,17 +488,23 @@ def symv_cases(m_main: int, m_f64: int):
     form that the windowed column calls (``fused`` True: one vector, the
     panel's corrections applied): f32 at m_main at the first, a middle and
     the last window group of an n = m_main solve, f64 at m_f64 at its
-    first and a middle one."""
+    first and a middle one.  Last, the band-2 path's own pair pass (nc = 2,
+    ``sx_``): f32 at m_f64 and m_main and f64 at m_f64, each at its first
+    window and at the window of its last panel."""
     cases = [("first_column", m_main, 0, 1, False),
              ("window", m_main, 16, 1, False),
              ("pair", m_main, 0, 2, False), ("ragged", 1837, 1, 1, False)]
+    sx = [("sx_pair_first", m_f64, 0, 2, False),
+          ("sx_pair_last", m_f64, sx_last_t0(m_f64), 2, False)]
     f64 = cases + [("f64_path_first_column", m_f64, 0, 1, False),
                    ("f64_path_window", m_f64, 8, 1, False),
                    ("fused_f64_path_first_column", m_f64, 0, 1, True),
-                   ("fused_f64_path_window", m_f64, 8, 1, True)]
+                   ("fused_f64_path_window", m_f64, 8, 1, True)] + sx
     return {"float32": cases + [("fused_first_column", m_main, 0, 1, True),
                                 ("fused_window", m_main, 16, 1, True),
-                                ("fused_late_window", m_main, 28, 1, True)],
+                                ("fused_late_window", m_main, 28, 1, True)]
+            + sx + [("sx_pair_last_large", m_main, sx_last_t0(m_main), 2,
+                     False)],
             "float64": f64}
 
 
@@ -578,6 +657,101 @@ def rank2k_window_phase(device, m_main: int, timed: bool,
     return rows
 
 
+def frank_bands(device, n: int) -> dict:
+    """The bands of the two reductions of Frank n in f64, the Sturm
+    kernel's operands on the main path: {1: (d, e, None), 2: (d, e1,
+    e2)}."""
+    import torch
+    from eigenexa_tpu_torch.ops import band, householder
+    from eigenexa_tpu_torch.testing import frank
+
+    a = frank(n, torch.float64, device)
+    trd = householder.tridiagonalize(a, nb=NB_F)
+    prd = band.band2_reduce(a, nb=NB_F, donate=True)
+    return {1: (trd.d, trd.e, None), 2: (prd.d, prd.e1, prd.e2)}
+
+
+def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
+                timed: bool = True, samples: int = 32):
+    """Compare sturm_bisect with its plain version, bit for bit, on the
+    tridiagonal (band 1) and the pentadiagonal (band 2) of Frank
+    reductions: the bisection of modes N (70 steps from the Gershgorin
+    brackets) and the refinement of mode X (45 steps from brackets around
+    w0, with the two counts of the valid check; w0 is the library's
+    eigenvalues with one index pushed outside its bracket, which must come
+    back as it went in).  At n_small every index against the plain version
+    on the same device; at n_large `samples` indices spread over the
+    spectrum against the plain version on copies on the host's CPU (each
+    index's bracket evolves alone).  Timed: the kernel's call and device
+    time at n_large, the plain version's at n_small, the library's
+    eigenvalues of the dense matrix, and the bound: the recurrence's f64
+    operations at the FP64 CUDA-core peak.  Returns one row per case."""
+    import torch
+    from eigenexa_tpu_torch.ops import band, kernels, sturm
+
+    rows = []
+    cpu = torch.device("cpu")
+    for n in (n_small, n_large):
+        bands = frank_bands(device, n)
+        for b, (d, e1, e2) in bands.items():
+            dense = (band.assemble_band2(d, e1, e2) if b == 2 else
+                     torch.diag(d) + torch.diag(e1, 1) + torch.diag(e1, -1))
+            library = torch.linalg.eigvalsh(dense)
+            w0 = library.clone()
+            w0[n // 3] += 10.0 * float(library.abs().max())
+            for op, n_iter, valid in (("bisect", 70, False),
+                                      ("refine", 45, True)):
+                ends = (sturm.refine_brackets(w0) if valid
+                        else sturm.bisect_brackets(d, e1, e2))
+                args = (d, e1, e2, *ends, n_iter, valid, w0)
+                got = kernels.sturm_bisect(*args)
+                _sync(device)
+                idx = None
+                on = device
+                if n == n_large:
+                    idx = torch.linspace(0, n - 1, samples).round().long()
+                    on = cpu
+                    got = got.cpu()[idx]
+                plain_args = [None if x is None else
+                              (x.to(on) if isinstance(x, torch.Tensor)
+                               else x) for x in args]
+                t0 = time.perf_counter()
+                plain = kernels._sturm_bisect_ref(*plain_args, idx=idx)
+                _sync(on)
+                plain_s = time.perf_counter() - t0
+                got, plain = got.cpu(), plain.cpu()
+                equal = bool(torch.equal(got, plain))
+                err = float((got - plain).abs().max())
+                kept = (not valid or n == n_large
+                        or float(got[n // 3]) == float(w0[n // 3]))
+                row = {"name": "sturm_bisect", "case": f"{op}_band{b}",
+                       "dtype": "float64", "n": n, "band": b,
+                       "n_iter": n_iter, "indices_checked": int(
+                           n if idx is None else idx.numel()),
+                       "plain_on": on.type, "max_abs_err": err,
+                       "bitwise_equal": equal,
+                       "failed_bracket_keeps_w0": kept}
+                if timed and n == n_small:
+                    row["plain_ms"] = plain_s * 1e3
+                if timed and n == n_large:
+                    def kernel(args=args):
+                        return kernels.sturm_bisect(*args)
+                    row["ms"] = _time_ms(kernel, device, 3)
+                    row["device_ms"] = _device_ms(kernel, device, 3, 3)
+                    row["library_ms"] = _time_ms(
+                        lambda: torch.linalg.eigvalsh(dense), device, 2)
+                    sweeps = n_iter + (2 if valid else 0)
+                    ops = float(n) * sweeps * n * STURM_STEP_OPS[b]
+                    row.update(step_ops=STURM_STEP_OPS[b], operations=ops,
+                               bound_ms=ops / PEAK_FP64_CUDA_CORES * 1e3,
+                               bound_by="operations")
+                rows.append(_report(row, equal and kept,
+                                    "differs from its plain version"))
+            del dense, library
+        del bands
+    return rows
+
+
 def _check_solution(label, a, w, z, w_true, others):
     """Shapes, finiteness, the reference's three checks, and bitwise
     equality with the solves in `others` ({name: (w, z)})."""
@@ -615,8 +789,7 @@ def slice_phase(device, n: int):
 
     a = frank(n, torch.float32, device)
     w_true = frank_spectrum(n, torch.float64)
-    want = {"sub_matmul": expected_launches(n), "symv_lower": 0,
-            "rank2k_update_window": 0}
+    want = _want(sub_matmul=expected_launches(n))
     counts = []
     _reset_launches(kernels)
     w1, z1, cold = eigen_s(a)
@@ -678,8 +851,7 @@ def f64_phase(device, n: int):
 
     a = frank(n, torch.float64, device)
     w_true = frank_spectrum(n, torch.float64, device)
-    want = {"sub_matmul": expected_launches(n), "symv_lower": 0,
-            "rank2k_update_window": 0}
+    want = _want(sub_matmul=expected_launches(n))
     want_win = expected_launches_windowed(n)
     _reset_launches(kernels)
     w1, z1, cold = eigen_s(a)
@@ -759,6 +931,176 @@ def windowed_phase(device, n: int):
     if not same["cold"]:
         raise AssertionError("windowed: cold and warm solves differ")
     return counts[0], peak
+
+
+def _solve_sx(device, a, impl: str, label: str, want: dict,
+              profile: bool = True):
+    """One eigen_sx with the reduction forced to `impl`, its launch counts
+    held to `want`; prints the time, the stage split and the peak device
+    memory above what was resident before it.  Returns (w, z)."""
+    from eigenexa_tpu_torch import eigen_sx
+    from eigenexa_tpu_torch.ops import householder, kernels
+
+    old = householder.TRD_IMPL
+    householder.TRD_IMPL = impl
+    try:
+        _reset_launches(kernels)
+        resident = _mem_mark(device)
+        w, z, info = eigen_sx(a, profile=profile)
+        peak = _mem_peak(device, resident)
+        counts = _take_launches(kernels)
+    finally:
+        householder.TRD_IMPL = old
+    print(f"sx: {label} {info.elapsed:.4f} s = {info.gflops:.2f} GFLOP/s; "
+          f"peak device memory above the resident {resident} bytes: {peak} "
+          f"bytes; launches {json.dumps(counts)} (expected "
+          f"{json.dumps(want)})", flush=True)
+    info.stage_report(lambda line: print(f"sx {label} stage" + line,
+                                         flush=True))
+    if counts != want:
+        raise AssertionError(f"sx {label}: launch counts {counts} != {want}")
+    return w, z, counts
+
+
+def sx_phase(device, n: int = N_SLICE, n_large: int = N_WINDOWED):
+    """eigen_sx, the band-2 path, on Frank matrices: n f32 rolled twice
+    (the reruns bitwise equal) and windowed once, n f64 rolled once,
+    n_large f32 windowed once.  Each passes the checks of its dtype and
+    has its schedule's launch counts.  Returns the launches of the rolled
+    and the windowed f32 solves at n."""
+    import torch
+    from eigenexa_tpu_torch.testing import frank, frank_spectrum
+
+    rolled, windowed = (expected_launches_sx(n, w) for w in (False, True))
+    a = frank(n, torch.float32, device)
+    w_true = frank_spectrum(n, torch.float64)
+    w1, z1, counts = _solve_sx(device, a, "rolled", f"n={n} f32 rolled",
+                               rolled, profile=False)
+    w2, z2, _ = _solve_sx(device, a, "rolled", f"n={n} f32 rolled rerun",
+                          rolled)
+    same = _check_solution("sx f32 rolled", a, w2, z2, w_true,
+                           {"first": (w1, z1)})
+    if not same["first"]:
+        raise AssertionError("sx: the rolled reruns differ")
+    del w1, z1, w2, z2
+    w, z, counts_win = _solve_sx(device, a, "windowed",
+                                 f"n={n} f32 windowed", windowed)
+    _check_solution("sx f32 windowed", a, w, z, w_true, {})
+    del a, w, z
+    a = frank(n, torch.float64, device)
+    w, z, _ = _solve_sx(device, a, "rolled", f"n={n} f64 rolled", rolled)
+    _check_f64("sx f64 rolled", a, w, z,
+               frank_spectrum(n, torch.float64, device))
+    del a, w, z
+    _empty_cache(device)
+    a = frank(n_large, torch.float32, device)
+    w, z, _ = _solve_sx(device, a, "windowed", f"n={n_large} f32 windowed",
+                        expected_launches_sx(n_large, True))
+    _check_solution("sx f32 windowed large", a, w, z,
+                    frank_spectrum(n_large, torch.float64), {})
+    del a, w, z
+    _empty_cache(device)
+    return counts, counts_win
+
+
+def _empty_cache(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def modes_phase(device, n: int = N_F64):
+    """Modes N, X and A of eigen_s and eigen_sx at Frank n f64: the strict
+    w_test never a hard FAIL, mode N's w within that test of mode A's,
+    mode X's vectors through the f64 checks, one sturm_bisect launch a
+    solve of modes N and X.  Then mode R: each reduction's bands saved to
+    a temporary directory and solved from there, bitwise equal to the
+    solve of the same arrays, no kernel launched.  Returns the launches
+    of all the mode N and X solves together."""
+    import torch
+    from eigenexa_tpu_torch import eigen_s, eigen_sx
+    from eigenexa_tpu_torch.ops import kernels
+    from eigenexa_tpu_torch.testing import (eigenvalue_check, frank,
+                                            frank_spectrum)
+
+    a = frank(n, torch.float64, device)
+    w_true = frank_spectrum(n, torch.float64, device)
+    sturm_path = _want()
+    drivers = (("eigen_s", eigen_s, expected_launches(n),
+                _full_panels(n, NB_F)),
+               ("eigen_sx", eigen_sx,
+                expected_launches_sx(n, False)["sub_matmul"],
+                _sx_panels(n)))
+    for name, drive, full, no_back in drivers:
+        w_a = None
+        for mode in "ANX":
+            want = _want(sub_matmul=no_back if mode == "N" else full,
+                         sturm_bisect=int(mode in "NX"))
+            _reset_launches(kernels)
+            w, z, info = drive(a, mode=mode, profile=True)
+            counts = _take_launches(kernels)
+            label = f"modes {name} {mode}"
+            print(f"{label}: Frank n={n} f64 {info.elapsed:.4f} s; "
+                  f"launches {json.dumps(counts)} (expected "
+                  f"{json.dumps(want)})", flush=True)
+            info.stage_report(lambda line, label=label: print(
+                f"{label} stage" + line, flush=True))
+            if counts != want:
+                raise AssertionError(f"{label}: launch counts {counts}")
+            if mode in "NX":
+                for key in sturm_path:
+                    sturm_path[key] += counts[key]
+            if mode == "N":
+                wt = eigenvalue_check(w, w_true)
+                wa = eigenvalue_check(w, w_a)
+                print(f"{label} checks: {wt}, against mode A's w {wa}",
+                      flush=True)
+                if z is not None or not all(c.passed or c.caution
+                                            for c in (wt, wa)):
+                    raise AssertionError(f"{label} checks failed")
+            else:
+                _check_f64(label, a, w, z, w_true)
+            if mode == "A":
+                w_a = w
+            del w, z
+    _empty_cache(device)
+    _mode_r(device, n, w_true)
+    return sturm_path
+
+
+def _mode_r(device, n: int, w_true) -> None:
+    """Mode R of both drivers on the bands of Frank n's two reductions:
+    from a directory of D.data/E.data[/F.data] and from the arrays
+    themselves."""
+    import torch
+    from eigenexa_tpu_torch import EigenContext, eigen_s, eigen_sx
+    from eigenexa_tpu_torch.ops import kernels
+    from eigenexa_tpu_torch.testing import eigenvalue_check
+    from eigenexa_tpu_torch.utils.stageio import save_stage_data
+
+    bands = frank_bands(device, n)
+    ctx = EigenContext(device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, drive, b in (("eigen_s", eigen_s, 1),
+                               ("eigen_sx", eigen_sx, 2)):
+            arrays = tuple(x for x in bands[b] if x is not None)
+            path = os.path.join(tmp, name)
+            save_stage_data(path, *arrays)
+            _reset_launches(kernels)
+            w_f, z_f, info = drive(None, mode="R", stage_data=path, ctx=ctx)
+            w_t, z_t, _ = drive(None, mode="R", stage_data=arrays, ctx=ctx)
+            counts = _take_launches(kernels)
+            same = bool(torch.equal(w_f, w_t) and torch.equal(z_f, z_t))
+            wt = eigenvalue_check(w_f, w_true)
+            print(f"modes {name} R: {len(arrays)} bands through "
+                  f"{sorted(os.listdir(path))} {info.elapsed:.4f} s; bitwise "
+                  f"equal to the solve of the arrays: {same}; {wt}; "
+                  f"launches {json.dumps(counts)}", flush=True)
+            if not (same and (wt.passed or wt.caution)
+                    and counts == _want() and z_f.shape == (n, n)):
+                raise AssertionError(f"modes {name} R failed")
+            del w_f, z_f, w_t, z_t
 
 
 def _solve_with(device, a, impl: str, mode: str) -> dict:
@@ -845,46 +1187,52 @@ def memory_phase(device):
 
 def trd_profile(device, n: int) -> None:
     """``--trd-profile N``: torch.profiler over one reduction (mode C) of
-    each implementation at Frank n f32: wall seconds, device-busy seconds
+    each implementation and each driver at Frank n f32 (``eigen_s``'s
+    TRD-BLK, ``eigen_sx``'s PRD-BLK): wall seconds, device-busy seconds
     (the sum of kernel times: one stream, so they do not overlap), the
-    idle share, the kernel count and the kernels that lead."""
+    idle share, the kernel count a column (a reflector pair for
+    ``eigen_sx``) and the kernels that lead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from eigenexa_tpu_torch import eigen_s
+    from eigenexa_tpu_torch import eigen_s, eigen_sx
     from eigenexa_tpu_torch.ops import householder
     from eigenexa_tpu_torch.testing import frank
 
     a = frank(n, torch.float32, device)
     old = householder.TRD_IMPL
-    walls = {}
+    drivers = (("eigen_s", eigen_s, "column",
+                expected_launches_windowed(n)["symv_lower"]),
+               ("eigen_sx", eigen_sx, "pair",
+                expected_launches_sx(n, True)["symv_lower"]))
     try:
-        # walls of both before any profiler has run
-        for impl in ("rolled", "windowed", "windowed", "rolled"):
-            householder.TRD_IMPL = impl
-            walls.setdefault(impl, []).append(
-                eigen_s(a, mode="C")[2].elapsed)
-        for impl in ("rolled", "windowed"):
-            householder.TRD_IMPL = impl
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                _, _, info = eigen_s(a, mode="C")
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA]
-            busy = sum(e.device_time_total for e in events) / 1e6
-            count = sum(e.count for e in events)
-            top = sorted(events, key=lambda e: -e.device_time_total)[:12]
-            wall = walls[impl][1]
-            columns = expected_launches_windowed(n)["symv_lower"]
-            print(f"trd-profile: {impl} n={n} wall unprofiled "
-                  f"{walls[impl]} s (cold, warm), profiled "
-                  f"{info.elapsed:.4f} s, device busy {busy:.4f} s, idle "
-                  f"share of the warm unprofiled wall "
-                  f"{1 - busy / wall:.4f}, kernels {count} "
-                  f"({count / columns:.2f} a column of the {columns} of "
-                  f"full panels)", flush=True)
-            for e in top:
-                print(f"trd-profile:   {e.device_time_total / 1e3:10.3f} ms "
-                      f"{e.count:8d} x {e.key[:90]}", flush=True)
+        for name, drive, step, steps in drivers:
+            # walls of both before any profiler has run
+            walls = {}
+            for impl in ("rolled", "windowed", "windowed", "rolled"):
+                householder.TRD_IMPL = impl
+                walls.setdefault(impl, []).append(
+                    drive(a, mode="C")[2].elapsed)
+            for impl in ("rolled", "windowed"):
+                householder.TRD_IMPL = impl
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    _, _, info = drive(a, mode="C")
+                events = [e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA]
+                busy = sum(e.device_time_total for e in events) / 1e6
+                count = sum(e.count for e in events)
+                top = sorted(events, key=lambda e: -e.device_time_total)[:12]
+                wall = walls[impl][1]
+                print(f"trd-profile: {name} {impl} n={n} wall unprofiled "
+                      f"{walls[impl]} s (cold, warm), profiled "
+                      f"{info.elapsed:.4f} s, device busy {busy:.4f} s, "
+                      f"idle share of the warm unprofiled wall "
+                      f"{1 - busy / wall:.4f}, kernels {count} "
+                      f"({count / steps:.2f} a {step} of the {steps} of "
+                      f"full panels)", flush=True)
+                for e in top:
+                    print(f"trd-profile:   {e.device_time_total / 1e3:10.3f}"
+                          f" ms {e.count:8d} x {e.key[:90]}", flush=True)
     finally:
         householder.TRD_IMPL = old
 
@@ -892,7 +1240,9 @@ def trd_profile(device, n: int) -> None:
 def _kernels_line(rows, launches) -> dict:
     """One entry per kernel at its shape on the f32 windowed path, with an
     ``f64`` object of the same kernel at its shape on the f64 windowed
-    path."""
+    path; ``sturm_bisect`` (f64 only) at its band-1 bisection of n = 8192,
+    its plain time at n = 1024, with a ``band2`` object of the band-2
+    bisection."""
     main_case = {"sub_matmul": ("wy_windowed_path", "wy"),
                  "symv_lower": ("fused_first_column",
                                 "fused_f64_path_first_column"),
@@ -904,6 +1254,9 @@ def _kernels_line(rows, launches) -> dict:
                 "library_device_ms", "max_abs_err")
     out = []
     for name, meta in KERNELS.items():
+        if name == "sturm_bisect":
+            out.append(_sturm_entry(rows, meta, launches[name]))
+            continue
         row, row64 = (next(r for r in rows if r["name"] == name
                            and r["case"] == case and r["dtype"] == dtype)
                       for case, dtype in zip(main_case[name],
@@ -913,6 +1266,22 @@ def _kernels_line(rows, launches) -> dict:
                     **{k: row[k] for k in keys},
                     "f64": {k: row64[k] for k in f64_keys}})
     return {"kernels": out}
+
+
+def _sturm_entry(rows, meta, launches) -> dict:
+    def row(case, n):
+        return next(r for r in rows if r["name"] == "sturm_bisect"
+                    and r["case"] == case and r["n"] == n)
+
+    keys = ("ms", "device_ms", "bound_ms", "library_ms", "max_abs_err")
+    big, big2 = row("bisect_band1", N_F64), row("bisect_band2", N_F64)
+    return {"name": "sturm_bisect", "route": "cuda", **meta,
+            "launches": launches, **{k: big[k] for k in keys},
+            "bound_by": big["bound_by"], "library_device_ms": None,
+            "plain_ms": row("bisect_band1", N_STURM)["plain_ms"],
+            "plain_ms_at_n": N_STURM, "n": N_F64,
+            "band2": {**{k: big2[k] for k in keys},
+                      "plain_ms": row("bisect_band2", N_STURM)["plain_ms"]}}
 
 
 def main() -> int:
@@ -954,7 +1323,8 @@ def main() -> int:
               ("same_bits", "sub_matmul", same_bits_phase, ()),
               ("symv_lower", "symv_lower", symv_phase, (N_WINDOWED, True)),
               ("rank2k_update_window", "rank2k_update_window",
-               rank2k_window_phase, (N_WINDOWED, True)))
+               rank2k_window_phase, (N_WINDOWED, True)),
+              ("sturm_bisect", "sturm_bisect", sturm_phase, ()))
     rows = []
     for label, kernel, phase, args in phases:
         if kernel in names:
@@ -970,16 +1340,24 @@ def main() -> int:
     print(f"peak device memory of a warm solve above what was resident: "
           f"rolled n={N_SLICE} {rolled_peak} bytes, windowed "
           f"n={N_WINDOWED} {windowed_peak} bytes", flush=True)
+    sx_rolled, sx_windowed = _timed_phase("sx", sx_phase, device)
+    modes = _timed_phase("modes", modes_phase, device)
     paths = (("rolled", rolled), ("windowed", windowed),
-             ("f64 rolled", rolled64), ("f64 windowed", windowed64))
+             ("f64 rolled", rolled64), ("f64 windowed", windowed64),
+             ("sx rolled", sx_rolled), ("sx windowed", sx_windowed),
+             ("modes N and X", modes))
     for path, counts in paths:
         print(f"launches on the {path} path: {json.dumps(counts)}",
               flush=True)
-    if not (all(counts["sub_matmul"] > 0 for _, counts in paths) and all(
-            windowed[name] > 0 and windowed64[name] > 0 for name in KERNELS)):
+    matmul = ("sub_matmul", "symv_lower", "rank2k_update_window")
+    if not (all(counts["sub_matmul"] > 0 for _, counts in paths)
+            and all(path[name] > 0 for name in matmul
+                    for path in (windowed, windowed64, sx_windowed))
+            and modes["sturm_bisect"] > 0):
         raise AssertionError("a kernel of a main path was never launched")
 
-    print(json.dumps(_kernels_line(rows, windowed)))
+    print(json.dumps(_kernels_line(rows, {**windowed, "sturm_bisect":
+                                          modes["sturm_bisect"]})))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

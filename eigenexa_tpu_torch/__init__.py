@@ -1,20 +1,28 @@
 """eigenexa_tpu_torch — the PyTorch/CUDA port of eigenexa_tpu.
 
-Single-device ``eigen_s`` (real symmetric, modes A/S/T/C): blocked
-Householder tridiagonalization, batched divide & conquer, WY
-back-transform.  The JAX package ``eigenexa_tpu`` stays beside it as the
-reference the port is held to; this package imports torch and never jax.
+Single-device ``eigen_s`` and ``eigen_sx`` (real symmetric, modes
+A/N/X/S/T/C/R).  ``eigen_s``: blocked Householder tridiagonalization,
+batched divide & conquer, WY back-transform.  ``eigen_sx``, the band-2
+path: a one-stage reduction to pentadiagonal form by two-column reflector
+pairs (``ops/band.py``), a banded divide & conquer with two rank-1 merges a
+join (``solvers/dc_band.py``), the same back-transform.  Modes N and X
+bisect with Sturm counts (``ops/sturm.py``); mode R runs the D&C alone on
+saved stage data (``utils/stageio.py``).  The JAX package ``eigenexa_tpu``
+stays beside it as the reference the port is held to; this package imports
+torch and never jax.
 
-Two reductions to tridiagonal form: the rolled one (the default) and the
-windowed one, which factors the matrix in one n×n buffer.  The three Pallas
-TPU kernels of the JAX package are hand-written CUDA kernels for Hopper,
-built with nvcc at first use: ``sub_matmul`` (B − P·Qᵀ: the rolled
-reduction's trailing update and every back-transform block) and
-``rank2k_update_window`` (the windowed reduction's trailing update), both in
-``csrc/sub_matmul.cu``; ``symv_lower`` (the windowed reduction's
-lower-triangle matvec with the panel's corrections, ``csrc/symv_lower.cu``).
-A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
-launches the kernel or raises.
+Each reduction comes rolled (the default) or windowed (one n×n buffer).
+The three Pallas TPU kernels of the JAX package are hand-written CUDA
+kernels for Hopper, built with nvcc at first use: ``sub_matmul`` (B − P·Qᵀ:
+the rolled reductions' trailing updates and every back-transform block) and
+``rank2k_update_window`` (the windowed reductions' trailing updates), both
+in ``csrc/sub_matmul.cu``; ``symv_lower`` (the windowed reductions'
+lower-triangle matvec: one vector with the panel's corrections for a
+column, two for a band-2 pair; ``csrc/symv_lower.cu``).  A fourth kernel,
+``sturm_bisect`` (``csrc/sturm.cu``), is the card form of the JAX package's
+``lax.scan`` Sturm recurrence: one thread an eigenvalue index.  A CPU
+tensor takes each kernel's plain PyTorch version; a CUDA tensor launches
+the kernel or raises.
 """
 
 from eigenexa_tpu_torch.runtime import (
@@ -25,7 +33,8 @@ from eigenexa_tpu_torch.runtime import (
     eigen_init,
     eigen_show_version,
 )
-from eigenexa_tpu_torch.solvers.solver import SolveInfo, eigen_s, eigh
+from eigenexa_tpu_torch.solvers.solver import (SolveInfo, eigen_s,
+                                               eigen_sx, eigh)
 
 __version__ = "0.1.0"
 __codename__ = "takanoha"
@@ -38,6 +47,7 @@ __all__ = [
     "eigen_get_version",
     "eigen_init",
     "eigen_s",
+    "eigen_sx",
     "eigen_show_version",
     "eigh",
 ]

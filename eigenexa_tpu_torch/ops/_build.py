@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
-_SOURCES = ("sub_matmul.cu", "symv_lower.cu")
+_SOURCES = ("sub_matmul.cu", "symv_lower.cu", "sturm.cu")
 _LIB_NAME = "libeigenexa_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -43,7 +43,19 @@ _ARGTYPES = {
     #  half, nb, stream)
     "eigenexa_symv_lower": [_I, _I, _I, _P, _LD, _P, _LD, _P, _LD, _P, _LD,
                             _P, _LD, _I, _I, _P],
+    # (n, band, s0, s1, s2, head, a0, b0, w0, n_iter, w, stream)
+    "eigenexa_sturm_bisect": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
 }
+# the dtypes each entry point is built for (the suffix of its name): both,
+# but the Sturm recurrence, which is f64 only
+_SUFFIXES = {"eigenexa_sturm_bisect": ("_f64",)}
+
+
+def entry_points():
+    """(C name, argument types) of every entry point of the library."""
+    return [(name + suffix, argtypes)
+            for name, argtypes in _ARGTYPES.items()
+            for suffix in _SUFFIXES.get(name, ("_f32", "_f64"))]
 
 _lib = None
 build_seconds = None  # wall seconds of this process's nvcc run, if any
@@ -120,10 +132,9 @@ def load_library() -> ctypes.CDLL:
         if not target.exists():
             _build(target)
         lib = ctypes.CDLL(str(target))
-        for name, argtypes in _ARGTYPES.items():
-            for suffix in ("_f32", "_f64"):
-                fn = getattr(lib, name + suffix)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+        for name, argtypes in entry_points():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib

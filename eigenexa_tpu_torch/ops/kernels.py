@@ -1,9 +1,9 @@
-"""The port's kernel wrappers: ``sub_matmul``, ``symv_lower`` and
-``rank2k_update_window``.
+"""The port's kernel wrappers: ``sub_matmul``, ``symv_lower``,
+``rank2k_update_window`` and ``sturm_bisect``.
 
 Counterpart of ``eigenexa_tpu/ops/pallas_kernels.py``.  Each kernel is
 hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
-``symv_lower.cu``), built by ``ops/_build.py``:
+``symv_lower.cu``, ``sturm.cu``), built by ``ops/_build.py``:
 
 * ``sub_matmul`` (with ``rank2k_update`` and ``wy_apply``): the fused
   subtract-matmul ``OUT = B − P·Qᴴ`` of the rolled reduction's trailing
@@ -15,7 +15,12 @@ hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
   (``out=``, ``scratch=``; ``symv_workspace`` makes one per reduction)
   it allocates nothing;
 * ``rank2k_update_window``: the windowed reduction's trailing update, in
-  place on the same window.
+  place on the same window;
+* ``sturm_bisect``: index-targeted Sturm bisection of a tridiagonal or
+  pentadiagonal matrix, one thread an eigenvalue index (modes N and X).
+  It is no TPU kernel's port: the JAX package runs the recurrence as a
+  ``lax.scan`` inside ``lax.fori_loop`` (``eigenexa_tpu/ops/sturm.py``),
+  which eager PyTorch on the card could only issue launch by launch.
 
 ``WIN_TM`` is the window granularity TM: a window starts at row and column
 ``t0·TM``.  It says nothing about the kernels' own tiles, and a matrix edge
@@ -24,8 +29,8 @@ need not be a multiple of it.
 Dispatch is by device, never by a fallback:
 
 * a CPU tensor takes the plain version (``_sub_matmul_ref``,
-  ``_symv_lower_ref``, ``_rank2k_window_ref``); the parity tests and the
-  CPU solver run it;
+  ``_symv_lower_ref``, ``_rank2k_window_ref``, ``_sturm_bisect_ref``); the
+  parity tests and the CPU solver run it;
 * a CUDA tensor launches the kernel, or raises on what the kernel does not
   take (complex, other dtypes, non-unit column stride, bad aliasing, more
   than ``SYMV_MAX_NC`` vectors, a window that starts past the matrix).
@@ -41,13 +46,15 @@ import torch
 
 from eigenexa_tpu_torch.ops._build import load_library
 
-LAUNCHES = {"sub_matmul": 0, "symv_lower": 0, "rank2k_update_window": 0}
+LAUNCHES = {"sub_matmul": 0, "symv_lower": 0, "rank2k_update_window": 0,
+            "sturm_bisect": 0}
 
 WIN_TM = 512       # window granularity TM of the windowed reduction
 SYMV_MAX_NC = 8    # most vectors one symv_lower call takes
 _SYMV_TILE = 64    # tile rows of csrc/symv_lower.cu (sizes its scratch)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+F64 = torch.float64
 
 
 def _sub_matmul_ref(b, p, q):
@@ -392,3 +399,146 @@ def rank2k_update_window(b, u, w, t0: int = 0):
     _raise_on(err, "rank2k_update_window")
     LAUNCHES["rank2k_update_window"] += 1
     return b
+
+
+# ---------------------------------------------------------------------------
+# Sturm bisection (modes N and X): f64 whatever the solve's dtype
+# ---------------------------------------------------------------------------
+
+def sturm_setup(d, e1, e2=None):
+    """The recurrence's operands as the kernel reads them, in f64, with the
+    JAX package's pivmin guards (``eigenexa_tpu/ops/sturm.py:40,126``).
+
+    Band 1 (``e2`` None): ``(d, e²)`` with a leading zero on e², and
+    ``head = [pivmin]``, pivmin = 1e-30·max(max e², 1).  Band 2: ``(d
+    shifted by two, e1 shifted by one, e2)``, each zero past its end, and
+    ``head = [pivmin, d₀, d₁, e1₀]`` (d₁ = e1₀ = 0 past n), pivmin =
+    1e-28·((max(max|d|, 1) + max|e1|) + max|e2|).  Shared by the kernel and
+    its plain version, so the two see the same operands."""
+    d = d.to(F64)
+    e1 = e1.to(F64)
+    n = d.shape[0]
+    z = d.new_zeros
+    if e2 is None:
+        e_sq = torch.cat([z(1), e1 * e1])
+        pivmin = torch.clamp_min(e_sq.amax(), 1.0) * 1e-30
+        return (d.contiguous(), e_sq), pivmin.reshape(1)
+    e2 = e2.to(F64)
+    e1p = torch.cat([e1, z(n - e1.shape[0])])
+    e2p = torch.cat([e2, z(n - e2.shape[0])])
+    scale = (torch.clamp_min(d.abs().amax(), 1.0) + e1p.abs().amax()
+             + e2p.abs().amax())
+    d1 = d[1:2] if n > 1 else z(1)
+    head = torch.cat([(scale * 1e-28).reshape(1), d[:1], d1, e1p[:1]])
+    return (torch.cat([d[2:], z(min(n, 2))]), torch.cat([e1p[1:], z(1)]),
+            e2p), head
+
+
+def _sturm_count_ref(bands, head, x):
+    """Plain version of the kernel's count: eigenvalues below each probe
+    of ``x`` (k,), one step of the recurrence at a time over (k,) vectors,
+    each operation rounded once, in the kernel's order.  int32 (k,)."""
+    pivmin = head[0]
+    neg_pivmin = -pivmin
+    count = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    if len(bands) == 2:
+        q = torch.ones_like(x)
+        for d_k, e_sq_k in zip(bands[0].unbind(), bands[1].unbind()):
+            q = (d_k - x) - e_sq_k / q
+            q = torch.where(q.abs() < pivmin, neg_pivmin, q)
+            count += q < 0
+        return count
+    n = bands[0].shape[0]
+    a = head[1] - x
+    b = head[3].expand(x.shape)
+    c = head[2] - x if n > 1 else torch.zeros_like(x)
+    for d_next, e1_next, e2_k in zip(*(t.unbind() for t in bands)):
+        piv = torch.where(a.abs() < pivmin,
+                          torch.where(a >= 0, pivmin, neg_pivmin), a)
+        count += piv < 0
+        l1 = b / piv
+        l2 = e2_k / piv
+        a = c - l1 * b
+        b = e1_next - l1 * e2_k
+        c = (d_next - x) - l2 * e2_k
+    return count
+
+
+def _sturm_bisect_ref(d, e1, e2, a0, b0, n_iter: int,
+                      check_valid: bool = False, w0=None, idx=None):
+    """Plain PyTorch version of :func:`sturm_bisect`.  ``idx`` (plain
+    version only) picks the eigenvalue indices to compute; each index's
+    bracket evolves alone, so a subset gives the same bits as the whole."""
+    bands, head = sturm_setup(d, e1, e2)
+    n = bands[0].shape[0]
+    ids = (torch.arange(n, device=bands[0].device) if idx is None
+           else torch.as_tensor(idx, device=bands[0].device))
+    a = a0.to(F64)[ids]
+    b = b0.to(F64)[ids]
+    if check_valid:
+        valid = ((_sturm_count_ref(bands, head, a) <= ids)
+                 & (_sturm_count_ref(bands, head, b) > ids))
+    for _ in range(n_iter):
+        mid = 0.5 * (a + b)
+        above = _sturm_count_ref(bands, head, mid) > ids
+        b = torch.where(above, mid, b)
+        a = torch.where(above, a, mid)
+    w = 0.5 * (a + b)
+    if check_valid:
+        w = torch.where(valid, w, w0.to(F64)[ids])
+    return w
+
+
+def sturm_bisect(d, e1, e2, a0, b0, n_iter: int, check_valid: bool = False,
+                 w0=None):
+    """Eigenvalue i of the symmetric tridiagonal T(d, e1) (``e2`` None) or
+    pentadiagonal T(d, e1, e2), for every i, by ``n_iter`` halvings of the
+    bracket [a0[i], b0[i]] (reference: src/bisect.F:67, src/bisect2.F:71):
+    each step probes the midpoint with one Sturm count and keeps the half
+    that holds index i.  With ``check_valid`` an index whose bracket does
+    not hold it at the start returns ``w0[i]`` (the refinement's mask).
+
+    d: (n,); e1: (n-1,); e2: (n-2,) or None; a0, b0, w0: (n,).  Returns f64
+    (n,).  A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/sturm.cu`` (bit for bit the plain version's result) or raises.
+    """
+    n = d.shape[0]
+    if d.ndim != 1 or e1.shape != (max(n - 1, 0),) or (
+            e2 is not None and e2.shape != (max(n - 2, 0),)):
+        raise ValueError(f"sturm_bisect: bands d{tuple(d.shape)} "
+                         f"e1{tuple(e1.shape)} e2"
+                         f"{None if e2 is None else tuple(e2.shape)} do not "
+                         "fit (n,), (n-1,), (n-2,)")
+    if check_valid and w0 is None:
+        raise ValueError("sturm_bisect: check_valid needs w0")
+    ends = (a0, b0) + ((w0,) if check_valid else ())
+    if any(t.shape != (n,) for t in ends):
+        raise ValueError(f"sturm_bisect: a0, b0 (and w0) must be ({n},)")
+    tensors = (d, e1) + ((e2,) if e2 is not None else ()) + ends
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("sturm_bisect: operands on different devices")
+    if any(t.is_complex() for t in tensors):
+        raise TypeError("sturm_bisect: the bands and brackets are real")
+    if n_iter < 0:
+        raise ValueError(f"sturm_bisect: n_iter = {n_iter} < 0")
+    if d.device.type == "cpu":
+        return _sturm_bisect_ref(d, e1, e2, a0, b0, n_iter, check_valid, w0)
+    if d.device.type != "cuda":
+        raise NotImplementedError(
+            f"sturm_bisect: no kernel for device {d.device.type!r}")
+    bands, head = sturm_setup(d, e1, e2)
+    s2 = bands[2] if e2 is not None else None
+    a0, b0 = a0.to(F64).contiguous(), b0.to(F64).contiguous()
+    w0 = w0.to(F64).contiguous() if check_valid else None
+    w = torch.empty((n,), dtype=F64, device=d.device)
+    fn = load_library().eigenexa_sturm_bisect_f64
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(n, 1 if e2 is None else 2, bands[0].data_ptr(),
+                 bands[1].data_ptr(), None if s2 is None else s2.data_ptr(),
+                 head.data_ptr(), a0.data_ptr(), b0.data_ptr(),
+                 None if w0 is None else w0.data_ptr(), n_iter, w.data_ptr(),
+                 stream)
+    _raise_on(err, "sturm_bisect")
+    LAUNCHES["sturm_bisect"] += 1
+    return w

@@ -43,6 +43,15 @@ class MergeCore(NamedTuple):
     c: torch.Tensor       # (B, m, m) basis transform: Q_new = Q_sorted @ c
     perm: torch.Tensor    # (B, m) sort permutation applied to coordinates
 
+    def unsorted_c(self) -> torch.Tensor:
+        """c with its rows back in pre-sort coordinate order, so that
+        Q_new = Q @ c for Q in the merge's own coordinates: a gather with
+        the inverse permutation (JAX: ``.at[perm, :].set(c)``)."""
+        bsz, m = self.perm.shape
+        inv_perm = torch.argsort(self.perm, dim=1)
+        return torch.gather(self.c, 1,
+                            inv_perm[:, :, None].expand(bsz, m, m))
+
 
 def _arange(m: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(m, device=like.device)

@@ -63,9 +63,7 @@ def _merge_level(d, q, row0, row1, rho, sgn, vec_dtype):
     # rows of c back to pre-sort coordinate order (a gather with the
     # inverse permutation), then the block-diagonal basis in two
     # half-height GEMMs (dlaed3 shape)
-    inv_perm = torch.argsort(core.perm, dim=1)
-    c_unsorted = torch.gather(
-        core.c, 1, inv_perm[:, :, None].expand(h, 2 * s, 2 * s))
+    c_unsorted = core.unsorted_c()
     cu = c_unsorted.to(vec_dtype)
     top = q2[:, 0] @ cu[:, :s, :]
     bot = q2[:, 1] @ cu[:, s:, :]

@@ -3,8 +3,8 @@
 // are fibers on one OS thread, the blocks of a grid run one after another,
 // __syncthreads() is a barrier, __shared__ a static array, and dynamic
 // shared memory one buffer filled with NaN bytes at the start of every
-// block.  Enough of the runtime for csrc/sub_matmul.cu and
-// csrc/symv_lower.cu.  The tests rewrite `kernel<<<grid, threads, smem,
+// block.  Enough of the runtime for csrc/sub_matmul.cu,
+// csrc/symv_lower.cu and csrc/sturm.cu.  The tests rewrite `kernel<<<grid, threads, smem,
 // stream>>>(args)` into `emu_launch(kernel, grid, threads, args)`, the
 // inline PTX (the DMMA statement, the cp.async copies, commits and waits)
 // into calls of the `emu_` functions below, and `extern __shared__` into a
@@ -249,3 +249,11 @@ void emu_launch(F kernel, dim3 grid, int threads, A... args) {
       }
     }
 }
+
+// The f64 intrinsics that round once and are never contracted into an fma
+// (csrc/sturm.cu): plain operations of a host compiler that builds with
+// -std=c++20, which contracts nothing.
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }

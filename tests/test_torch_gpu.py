@@ -335,7 +335,8 @@ def test_windowed_eigen_s_on_the_card(cuda):
             tk.LAUNCHES[key] = 0
         w, z, _ = ext.eigen_s(a, ctx=ctx)
         assert tk.LAUNCHES == {"symv_lower": 1280,
-                               "rank2k_update_window": 20, "sub_matmul": 11}
+                               "rank2k_update_window": 20, "sub_matmul": 11,
+                               "sturm_bisect": 0}
         w2, z2, _ = ext.eigen_s(a, ctx=ctx)
     finally:
         householder.TRD_IMPL = old
@@ -366,7 +367,8 @@ def test_windowed_eigen_s_f64_on_the_card(cuda):
             tk.LAUNCHES[key] = 0
         w, z, _ = ext.eigen_s(a, ctx=ctx)
         assert tk.LAUNCHES == {"symv_lower": 1088,
-                               "rank2k_update_window": 17, "sub_matmul": 9}
+                               "rank2k_update_window": 17, "sub_matmul": 9,
+                               "sturm_bisect": 0}
         w2, z2, _ = ext.eigen_s(a, ctx=ctx)
     finally:
         householder.TRD_IMPL = old
@@ -399,4 +401,164 @@ def test_eigen_s_on_the_card(cuda, dtype):
     wc, _, _ = ext.eigen_s(a.cpu(), ctx=ext.eigen_init("cpu"))
     tol = 1e-12 if dtype == torch.float64 else 1e-4
     assert float((w.cpu() - wc).abs().max()) < tol * float(wc.abs().max())
+    ext.eigen_free()
+
+
+# ---------------------------------------------------------------------------
+# the band-2 path and the Sturm kernel
+# ---------------------------------------------------------------------------
+
+def _bands(seed, n, band2, device):
+    g = np.random.default_rng(seed)
+    out = [g.standard_normal(n), g.standard_normal(n - 1)]
+    out.append(g.standard_normal(n - 2) if band2 else None)
+    return [None if x is None else torch.as_tensor(x, device=device)
+            for x in out]
+
+
+@pytest.mark.parametrize("band2", [False, True])
+def test_sturm_bisect_gives_the_plain_versions_bits(cuda, band2):
+    """n = 700 (six blocks of 128, the bands staged in two chunks of 512):
+    the bisection (70 steps) and the refinement (45, one bracket pushed off
+    its index) bitwise equal to the plain version on 40 indices, which runs
+    on copies on the CPU (each index's bracket evolves alone)."""
+    from eigenexa_tpu_torch.ops import sturm
+
+    n = 700
+    d, e1, e2 = _bands(71, n, band2, cuda)
+    w_bisect = tk.sturm_bisect(d, e1, e2, *sturm.bisect_brackets(d, e1, e2),
+                               70)
+    w0 = w_bisect + 1e-9
+    w0[n // 2] += 100.0
+    idx = torch.linspace(0, n - 1, 40).round().long()
+    host = [None if x is None else x.cpu() for x in (d, e1, e2)]
+    for ends, n_iter, valid in (
+            (sturm.bisect_brackets(d, e1, e2), 70, False),
+            (sturm.refine_brackets(w0), 45, True)):
+        before = tk.LAUNCHES["sturm_bisect"]
+        got = tk.sturm_bisect(d, e1, e2, *ends, n_iter, valid, w0)
+        assert tk.LAUNCHES["sturm_bisect"] == before + 1
+        torch.cuda.synchronize()
+        want = tk._sturm_bisect_ref(*host, *(x.cpu() for x in ends), n_iter,
+                                    valid, w0.cpu(), idx=idx)
+        assert torch.equal(got.cpu()[idx], want)
+        if valid:
+            assert float(got[n // 2]) == float(w0[n // 2])
+    dense = torch.diag(d) + torch.diag(e1, 1) + torch.diag(e1, -1)
+    if band2:
+        dense += torch.diag(e2, 2) + torch.diag(e2, -2)
+    assert float((w_bisect - torch.linalg.eigvalsh(dense)).abs().max()) \
+        < 1e-12 * float(dense.abs().sum(1).max())
+
+
+def test_sturm_bisect_raises_on_what_the_kernel_does_not_take(cuda):
+    d, e1, _ = _bands(72, 20, False, cuda)
+    ends = torch.zeros(20, device=cuda), torch.ones(20, device=cuda)
+    with pytest.raises(TypeError, match="real"):
+        tk.sturm_bisect(d.to(torch.complex128), e1, None, *ends, 4)
+    with pytest.raises(ValueError, match="devices"):
+        tk.sturm_bisect(d, e1.cpu(), None, *ends, 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_symv_lower_pair_into_a_reused_workspace(cuda, dtype):
+    """The band-2 pair pass: nc = 2 into one workspace of its window group,
+    reused by calls with other vectors; each call gives the bits of a call
+    that makes its own workspace, and the plain version's values."""
+    m, t0 = 1300, 1
+    b = _dirty_symmetric(73, m, dtype, cuda)
+    ws = tk.symv_workspace(b, t0, nc=2)
+    for seed in (74, 75):
+        x = _randn(seed, m, 2, dtype=dtype, device=cuda)
+        out = tk.symv_lower(b, x, t0=t0, **ws)
+        assert out.data_ptr() == ws["out"].data_ptr()
+        fresh = tk.symv_lower(b, x, t0=t0)
+        assert torch.equal(out, fresh)
+        ref = tk._symv_lower_ref(b, x, t0)
+        w0 = t0 * tk.WIN_TM
+        bound = ERR_C[dtype] * m ** 0.5 * float(
+            torch.tril(b[w0:, w0:]).abs().max()) * float(x.abs().max())
+        assert float((out - ref).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("impl", ["rolled", "windowed"])
+def test_eigen_sx_on_the_card(cuda, impl, dtype):
+    """Frank n = 512: 7 band-2 panels with a trailing update and 4 WY
+    blocks; rolled, 11 sub_matmul launches; windowed, 224 symv_lower pair
+    calls (nc = 2), 7 rank2k_update_window and 4 sub_matmul.  The checks
+    pass, a rerun is bitwise equal, and the CPU solve agrees to
+    1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32."""
+    from eigenexa_tpu_torch.ops import householder
+
+    n = 512
+    want = ({"sub_matmul": 11, "symv_lower": 0, "rank2k_update_window": 0}
+            if impl == "rolled" else
+            {"sub_matmul": 4, "symv_lower": 224, "rank2k_update_window": 7})
+    ctx = ext.eigen_init(cuda)
+    a = frank(n, dtype, cuda)
+    old = householder.TRD_IMPL
+    householder.TRD_IMPL = impl
+    try:
+        for key in tk.LAUNCHES:
+            tk.LAUNCHES[key] = 0
+        w, z, _ = ext.eigen_sx(a, ctx=ctx)
+        assert tk.LAUNCHES == {**want, "sturm_bisect": 0}
+        w2, z2, _ = ext.eigen_sx(a, ctx=ctx)
+        wc, _, _ = ext.eigen_sx(a.cpu(), ctx=ext.eigen_init("cpu"))
+    finally:
+        householder.TRD_IMPL = old
+    assert z.device.type == "cuda" and z.dtype == dtype
+    assert residual_check(a, z, w).passed
+    assert orthogonality_check(z).passed
+    assert torch.equal(w, w2) and torch.equal(z, z2)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    assert float((w.cpu() - wc).abs().max()) < tol * float(wc.abs().max())
+    ext.eigen_free()
+
+
+@pytest.mark.parametrize("driver", ["eigen_s", "eigen_sx"])
+def test_modes_n_x_and_r_on_the_card(cuda, driver):
+    """Frank n = 300 f64: modes N and X launch sturm_bisect once each and
+    agree with mode A and with the CPU solve; mode R on the reduction's
+    bands launches nothing and gives the CPU's values."""
+    from eigenexa_tpu_torch.ops import band, householder
+
+    drive = getattr(ext, driver)
+    ctx = ext.eigen_init(cuda)
+    a = frank(300, torch.float64, cuda)
+    wa, _, _ = drive(a, ctx=ctx)
+    scale = float(wa.abs().max())
+    for mode in "NX":
+        before = tk.LAUNCHES["sturm_bisect"]
+        w, z, _ = drive(a, mode=mode, ctx=ctx)
+        assert tk.LAUNCHES["sturm_bisect"] == before + 1
+        assert (z is None) == (mode == "N")
+        assert float((w - wa).abs().max()) < 1e-12 * scale
+        wc, _, _ = drive(a.cpu(), mode=mode, ctx=ext.eigen_init("cpu"))
+        assert float((w.cpu() - wc).abs().max()) < 1e-12 * scale
+    red = (householder.tridiagonalize(a) if driver == "eigen_s"
+           else band.band2_reduce(a))
+    bands = (red.d, red.e) if driver == "eigen_s" else (red.d, red.e1,
+                                                        red.e2)
+    before = dict(tk.LAUNCHES)
+    w, z, _ = drive(None, mode="R", stage_data=bands, ctx=ctx)
+    assert tk.LAUNCHES == before and w.device.type == "cuda"
+    wc, _, _ = drive(None, mode="R", stage_data=[x.cpu() for x in bands])
+    assert float((w.cpu() - wc).abs().max()) < 1e-12 * scale
+    ext.eigen_free()
+
+
+def test_a_cpu_call_counts_no_launch(cuda):
+    """The same wrappers and drivers on CPU tensors take the plain
+    versions, on a machine with a card too."""
+    from eigenexa_tpu_torch.ops import sturm
+
+    before = dict(tk.LAUNCHES)
+    d, e1, e2 = _bands(76, 80, True, torch.device("cpu"))
+    sturm.eigvals_bisect_band2(d, e1, e2)
+    sturm.refine_eigenvalues(d, e1, d.sort().values)
+    a = frank(100, torch.float64)
+    ext.eigen_sx(a, mode="X", ctx=ext.eigen_init("cpu"))
+    assert tk.LAUNCHES == before
     ext.eigen_free()

@@ -106,9 +106,13 @@ def test_cpu_tensors_never_count_launches():
     tk.symv_lower(b, p[:, 0])
     tk.symv_lower(b, p[:, :2])
     tk.rank2k_update_window(b, p, q)
+    d, e = b.diagonal(), b.diagonal(-1)
+    ends = torch.full((64,), -1e3, dtype=b.dtype), torch.full((64,), 1e3)
+    tk.sturm_bisect(d, e, None, *ends, 3)
+    tk.sturm_bisect(d, e, e[:-1], *ends, 3, check_valid=True, w0=d)
     assert tk.LAUNCHES == before
     assert set(before) == {"sub_matmul", "symv_lower",
-                           "rank2k_update_window"}
+                           "rank2k_update_window", "sturm_bisect"}
 
 
 def test_wrapper_rejects_bad_operands_and_unknown_devices():
@@ -147,9 +151,11 @@ def test_build_table_binds_every_entry_point():
         for name, params in re.findall(
                 r'extern "C" int (\w+)\(([^)]*)\)', _c_code(csrc / src)):
             found[name] = [" ".join(p.split()) for p in params.split(",")]
-    bound = {name + sfx: args for name, args in _build._ARGTYPES.items()
-             for sfx in ("_f32", "_f64")}
-    assert set(found) == set(bound) and len(found) == 6
+    bound = dict(_build.entry_points())
+    # f32 and f64 of the three matmul and matvec entry points; the Sturm
+    # recurrence is f64 only
+    assert set(found) == set(bound) and len(found) == 7
+    assert "eigenexa_sturm_bisect_f64" in found
     for name, params in found.items():
         assert len(params) == len(bound[name]), name
         for param, ctype in zip(params, bound[name]):
@@ -423,6 +429,77 @@ def test_symv_source_mutants_fail_on_cpu_threads(symv_emu, mutant):
     assert run.returncode != 0 and run.stdout.splitlines()[-1] == "FAIL"
 
 
+STURM_MUTANTS = {
+    # the band-1 clamp of a pivot that meets zero
+    "dropped_pivmin_band1": ("        if (fabs(q) < pivmin) q = -pivmin;\n",
+                             ""),
+    # the band-2 clamp
+    "dropped_pivmin_band2": (
+        "fabs(a) < pivmin ? (a >= 0.0 ? pivmin : -pivmin) : a;", "a;"),
+}
+
+
+@pytest.fixture(scope="module")
+def sturm_emu(tmp_path_factory):
+    """csrc/sturm.cu built by the host compiler against the stand-in
+    runtime of tests/cuda_emu, with sturm_main.cpp as its main: the source
+    as it is, and each mutant of STURM_MUTANTS, all compiled at once."""
+    import re
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ with C++20")
+    emu = REPO / "tests" / "cuda_emu"
+    root = tmp_path_factory.mktemp("sturm_emu")
+    procs = {}
+    for name in (None, *STURM_MUTANTS):
+        src = (REPO / "eigenexa_tpu_torch" / "csrc" / "sturm.cu").read_text()
+        if name is not None:
+            old, new = STURM_MUTANTS[name]
+            assert src.count(old) == 1, name
+            src = src.replace(old, new)
+        src, count = re.subn(
+            r"(sturm_bisect_kernel<\w+>)<<<(\w+), kThreads, 0, s>>>\(\s*",
+            r"emu_launch(\1, \2, kThreads, ", src)
+        assert count == 2                  # one launch a band
+        d = root / (name or "source")
+        d.mkdir()
+        (d / "kern.cpp").write_text(src)
+        procs[name] = subprocess.Popen(
+            ["g++", "-std=c++20", "-O1", f"-I{emu}", f"-I{d}",
+             "-Wno-unknown-pragmas", "-o", str(d / "emu"),
+             str(emu / "sturm_main.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for name, proc in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, (name, err)
+    return {name: root / (name or "source") / "emu" for name in procs}
+
+
+def test_sturm_source_equals_the_plain_loop_on_cpu_threads(sturm_emu):
+    """csrc/sturm.cu itself, run as fibers on a CPU thread (see
+    `sturm_emu`): every case, band 1 and 2, n from 1 to 600, random and
+    exact-zero bands, bisection and refinement, bitwise equal to a plain
+    loop over the raw bands, and nothing written past w."""
+    run = subprocess.run([str(sturm_emu[None])], capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0, (run.stdout, run.stderr)
+    lines = run.stdout.splitlines()
+    assert lines[-1] == "ALL OK" and len(lines) == 18
+    assert all("bitwise equal" in line for line in lines[:-1])
+
+
+@pytest.mark.parametrize("mutant", list(STURM_MUTANTS))
+def test_sturm_source_mutants_fail_on_cpu_threads(sturm_emu, mutant):
+    """The exact-zero cases have teeth: without a pivmin clamp a pivot of
+    exactly 0 turns the rest of the recurrence into NaN."""
+    run = subprocess.run([str(sturm_emu[mutant])], capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode != 0 and run.stdout.splitlines()[-1] == "FAIL"
+    assert any("exact zeros" in line and "DIFFERS" in line
+               for line in run.stdout.splitlines())
+
+
 def _chip_smoke():
     import importlib.util
 
@@ -434,7 +511,7 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("phase", ["kernel", "same_bits", "symv",
-                                   "rank2k_window"])
+                                   "rank2k_window", "sturm"])
 def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
     """The card script's kernel phases at small sizes on CPU tensors (the
     plain versions, nothing timed): every case builds its operands, views
@@ -462,6 +539,11 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
         # the fused form at the windows of the f32 solve's groups
         assert [c[1:] for c in full["float32"] if c[4]] == [
             (16384, 0, 1, True), (16384, 16, 1, True), (16384, 28, 1, True)]
+        # the band-2 pair pass at the first and the last panel's window
+        assert [c[1:] for c in full["float32"] if c[0].startswith("sx_")] == [
+            (8192, 0, 2, False), (8192, 14, 2, False), (16384, 28, 2, False)]
+        assert [c[1:] for c in full["float64"] if c[0].startswith("sx_")] == [
+            (8192, 0, 2, False), (8192, 14, 2, False)]
         cases = [("first_column", 700, 0, 1, False),
                  ("window", 700, 1, 1, False), ("pair", 700, 0, 2, False),
                  ("ragged", 637, 1, 1, False),
@@ -475,6 +557,14 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
         assert len(rows) == 12
         assert sum(r["fused_panel_columns"] == cs.NB_F - 1
                    for r in rows) == 3
+    elif phase == "sturm":
+        # every index at the small n, a sample at the large one
+        rows = cs.sturm_phase(cpu, 40, 90, timed=False, samples=8)
+        assert [(r["n"], r["case"], r["indices_checked"]) for r in rows] == [
+            (n, f"{op}_band{b}", k) for n, k in ((40, 40), (90, 8))
+            for b in (1, 2) for op in ("bisect", "refine")]
+        assert all(r["bitwise_equal"] and r["failed_bracket_keeps_w0"]
+                   for r in rows)
     else:
         names = {dtype: [c[0] for c in cases] for dtype, cases in
                  cs.rank2k_window_cases(16384, 8192).items()}
@@ -491,7 +581,8 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
         rows = cs.rank2k_window_phase(cpu, 700, timed=False, m_f64=600)
         assert len(rows) == 9
         assert all(r["outside_untouched"] for r in rows)
-    assert all(r["max_abs_err"] <= r["bound"] for r in rows)
+    # the Sturm rows have no bound: they must give the plain version's bits
+    assert all(r["max_abs_err"] <= r.get("bound", 0.0) for r in rows)
     assert tk.LAUNCHES == before
 
 
@@ -546,8 +637,13 @@ def _imports(path: Path):
 
 def test_port_never_imports_jax():
     files = list((REPO / "eigenexa_tpu_torch").rglob("*.py"))
-    # the card's tests run where JAX is not installed
-    files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py"]
+    # the walk covers the band-2 slice's modules and the kernels' bindings
+    names = {str(p.relative_to(REPO / "eigenexa_tpu_torch")) for p in files}
+    assert names >= {"ops/sturm.py", "ops/band.py", "solvers/dc_band.py",
+                     "utils/stageio.py", "ops/kernels.py", "ops/_build.py"}
+    # the card's tests and chip tools run where JAX is not installed
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py",
+              *(REPO / "tools").glob("*.py")]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):

@@ -117,12 +117,15 @@ def test_nvec_selects_the_lowest_eigenvectors():
 
 
 def test_bad_and_unported_modes_raise():
+    """Every mode of the reference is ported (N, X and R since the band-2
+    slice); a mode outside them raises ValueError naming it, in both
+    drivers."""
     a = t(sym(16, 11))
-    with pytest.raises(ValueError, match="'Q'"):
-        ext.eigen_s(a, mode="Q")
-    for mode in ("N", "X", "R"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            ext.eigen_s(a, mode=mode)
+    assert tsolver._PORTED_MODES == tsolver.MODES
+    for driver in (ext.eigen_s, ext.eigen_sx):
+        for mode in ("Q", "Z", "AN"):
+            with pytest.raises(ValueError, match=f"'{mode}'"):
+                driver(a, mode=mode)
 
 
 def test_nan_input_poisons_w():
