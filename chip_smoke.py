@@ -38,7 +38,8 @@ result line:
               (the plain version on the card), 32 indices spread over the
               spectrum at n = 8192 (the plain version on the host's CPU:
               on the card its eager loop would issue millions of
-              launches), with the card's time at n = 8192 beside its
+              launches), a failed bracket keeping its w0 at both sizes,
+              with the card's time at n = 8192 beside its
               bound and ``torch.linalg.eigvalsh`` on the dense matrix; and
               ``same_bits``: a large ``sub_matmul`` call against the same
               product taken in row blocks, f32 (the launch rule sends the
@@ -209,6 +210,18 @@ def sx_last_t0(n: int, nb_f: int = NB_F) -> int:
     group = householder._win_group_size(n, nb_f)
     return ((_sx_panels(n, nb_f) - 1) * nb_f // group * group
             // kernels.WIN_TM)
+
+
+def sx_window_launches(n: int, t0: int, nb_f: int = NB_F) -> int:
+    """symv_lower launches (nc = 2, one a reflector pair) of one windowed
+    eigen_sx solve of n at window t0: the pairs of the panels whose window
+    group starts at t0·TM (``ops/band.py`` ``_band2_windowed``)."""
+    from eigenexa_tpu_torch.ops import householder, kernels
+
+    group = householder._win_group_size(n, nb_f)
+    panels = sum(k // group * group // kernels.WIN_TM == t0
+                 for k in range(0, _sx_panels(n, nb_f) * nb_f, nb_f))
+    return panels * nb_f // 2
 
 
 def _reset_launches(kernels) -> None:
@@ -564,6 +577,8 @@ def symv_phase(device, m_main: int, timed: bool, m_f64: int = N_F64):
                    "fused_panel_columns": nb, "max_abs_err": err,
                    "bound": bound, "zeros_above_window": zeros_above,
                    "bitwise_repeat": repeats}
+            if label.startswith("sx_"):
+                row["launches_at_window"] = sx_window_launches(m, t0)
             if timed:
                 # the call as the windowed column makes it: into a workspace
                 win, xw = b[w0:, w0:], x[w0:]
@@ -678,11 +693,12 @@ def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
     reductions: the bisection of modes N (70 steps from the Gershgorin
     brackets) and the refinement of mode X (45 steps from brackets around
     w0, with the two counts of the valid check; w0 is the library's
-    eigenvalues with one index pushed outside its bracket, which must come
-    back as it went in).  At n_small every index against the plain version
-    on the same device; at n_large `samples` indices spread over the
-    spectrum against the plain version on copies on the host's CPU (each
-    index's bracket evolves alone).  Timed: the kernel's call and device
+    eigenvalues with index n // 3 pushed outside its bracket, which must
+    come back as it went in, at both sizes).  At n_small every index
+    against the plain version on the same device; at n_large `samples`
+    indices (n // 3 and others spread over the spectrum) against the plain
+    version on copies on the host's CPU (each index's bracket evolves
+    alone).  Timed: the kernel's call and device
     time at n_large, the plain version's at n_small, the library's
     eigenvalues of the dense matrix, and the bound: the recurrence's f64
     operations at the FP64 CUDA-core peak.  Returns one row per case."""
@@ -706,10 +722,12 @@ def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
                 args = (d, e1, e2, *ends, n_iter, valid, w0)
                 got = kernels.sturm_bisect(*args)
                 _sync(device)
+                kept = not valid or float(got[n // 3]) == float(w0[n // 3])
                 idx = None
                 on = device
                 if n == n_large:
-                    idx = torch.linspace(0, n - 1, samples).round().long()
+                    spread = torch.linspace(0, n - 1, samples - 1).round()
+                    idx = torch.cat([spread.long(), torch.tensor([n // 3])])
                     on = cpu
                     got = got.cpu()[idx]
                 plain_args = [None if x is None else
@@ -722,8 +740,6 @@ def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
                 got, plain = got.cpu(), plain.cpu()
                 equal = bool(torch.equal(got, plain))
                 err = float((got - plain).abs().max())
-                kept = (not valid or n == n_large
-                        or float(got[n // 3]) == float(w0[n // 3]))
                 row = {"name": "sturm_bisect", "case": f"{op}_band{b}",
                        "dtype": "float64", "n": n, "band": b,
                        "n_iter": n_iter, "indices_checked": int(

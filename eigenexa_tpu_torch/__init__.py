@@ -20,7 +20,8 @@ in ``csrc/sub_matmul.cu``; ``symv_lower`` (the windowed reductions'
 lower-triangle matvec: one vector with the panel's corrections for a
 column, two for a band-2 pair; ``csrc/symv_lower.cu``).  A fourth kernel,
 ``sturm_bisect`` (``csrc/sturm.cu``), is the card form of the JAX package's
-``lax.scan`` Sturm recurrence: one thread an eigenvalue index.  A CPU
+``lax.scan`` Sturm recurrence, by multisection: a group of lanes an
+eigenvalue index, several bisection steps a round.  A CPU
 tensor takes each kernel's plain PyTorch version; a CUDA tensor launches
 the kernel or raises.
 """

@@ -13,13 +13,28 @@
 // card form of those loops is this one kernel (reference: eigen_bisect,
 // src/bisect.F:67, and eigen_bisect2, src/bisect2.F:71).
 //
-// Design: one thread owns one eigenvalue index i and keeps its bracket in
-// registers.  Every bisection step runs the whole recurrence over n for the
-// thread's midpoint, in the fixed order k = 0 ... n - 1, then keeps the half
-// that holds index i.  Each index's bracket evolves alone, so this is
-// exactly the JAX update, which probes all midpoints in one scan.  The band
-// entries are read by every thread in lockstep: a block stages them through
-// shared memory kChunk at a time and reads them as broadcasts.
+// Design: multisection by lane groups.  A group of G = 2^L lanes of one
+// warp owns one eigenvalue index i and keeps its bracket [a, b] in
+// registers, the same bracket in every lane.  One round does L bisection
+// steps at once.  Number the nodes of the next L levels of the bisection
+// tree as a heap, 1 ... 2^L - 1: lane k walks down from [a, b] to node k by
+// the midpoint expression of one step, 0.5 (lo + hi), and runs the whole
+// Sturm recurrence at that probe; `__ballot_sync` gives every lane of the
+// group the bits count > i of all its probes; every lane then walks the
+// heap from node 1 with those bits and updates [a, b] by the same midpoint
+// expressions.  The bracket after a round is thus the bracket after L steps
+// of bisection, bit for bit, for one chain of n dependent steps where
+// bisection takes L.  The last round takes the n_iter mod L levels that
+// are left.  Lane 0 of a group probes no node; in the refinement's valid
+// check lanes 0 and 1 count at a0 and b0 in one call.
+//
+// The band entries are read by every lane in lockstep: a block stages them
+// through shared memory kChunk at a time and reads them as broadcasts.
+// Every thread of a block makes the same number of counts (one a round, one
+// for the valid check, n_iter being uniform), so the barriers of the
+// staging loop meet.  A block of kThreads lanes holds kThreads / G indices,
+// so the n G threads spread over the whole card (at n = 8192 and L = 3,
+// 512 blocks of 128 for 132 SMs).
 //
 // The bits: every operation is the JAX scan's operation with one rounding
 // (the _rn intrinsics are never contracted into an fma), in the scan's
@@ -33,21 +48,25 @@
 // 1e-30 max(e^2, 1) and 1e-28 (max(|d|, 1) + max|e1| + max|e2|), keep the
 // counts integer-exact where a pivot meets zero; the caller computes them.
 //
-// What bounds it on an H100: nothing the card is short of.  A band-1 step is
-// 5 f64 operations (two subtractions, one division, two comparisons), a
-// band-2 step 12 (two divisions, three multiplies, four subtractions, three
-// comparisons): 2.3e10 operations for a bisection of 70 steps at n = 8192 in
-// band 1, 0.69 ms at the 34 TFLOP/s FP64 peak.  But one step waits for the
-// previous one's division, and n threads fill only n / 128 blocks, so the
-// kernel runs at the latency of one chain of n_iter * n dependent steps per
-// thread.  That is the simple kernel asked for first; splitting an index's
-// probes over a warp (multisection) is later work.
+// What bounds it on an H100: the latency of the recurrence.  A step waits
+// for the previous step's division (a Newton sequence of dependent FP64
+// instructions), and the recurrence has no parallel axis of its own that
+// keeps the bits.  One thread an index would run, at n = 8192, one chain of
+// 70 x 8192 steps a scheduler on 64 of the 132 SMs: 47 ms for band 1
+// against 0.69 ms of operations (PERF.md).  Multisection trades
+// work for latency: a round does (2^L - 1) / L times bisection's counts
+// (2^L lanes run) in exchange for L times fewer dependent steps, and G
+// times as many threads give every scheduler of every SM chains to
+// interleave.  L is a constant a band, the fastest of L = 1 ... 5 on the
+// card (PERF.md; `tools/kernel_variants.py --sweep-sturm`).
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // eigenvalue indices a block
+constexpr int kThreads = 128;  // lanes a block
 constexpr int kChunk = 512;    // band entries of each array staged a round
+constexpr int kLevelsBand1 = 3;  // L, bisection steps a round, band 1
+constexpr int kLevelsBand2 = 3;  // band 2
 
 // count(x) over the staged arrays.  Band 1: s0 = d, s1 = e^2 with a leading
 // zero.  Band 2: s0 = d shifted by two, s1 = e1 shifted by one, s2 = e2,
@@ -96,33 +115,80 @@ __device__ int sturm_count(int n, const double* s0, const double* s1,
   return count;
 }
 
-// w[i] = the midpoint of index i's bracket after n_iter halvings.  With w0,
-// a bracket that does not hold index i at the start (count(a0) > i or
-// count(b0) <= i) returns w0[i] instead: the refinement's `valid` mask.
-template <bool kBand2>
+// The probe of heap node `node` >= 1 below [a, b]: the midpoint of the
+// bracket that bisection holds when it reaches the node.  The bits of
+// node below its leading one are the path, 0 the lower half, 1 the upper.
+__device__ double heap_probe(int node, double a, double b) {
+  int depth = 0;
+  for (int t = node; t > 1; t >>= 1) ++depth;
+  double mid = __dmul_rn(0.5, __dadd_rn(a, b));
+  for (int l = depth - 1; l >= 0; --l) {
+    if ((node >> l) & 1)
+      a = mid;
+    else
+      b = mid;
+    mid = __dmul_rn(0.5, __dadd_rn(a, b));
+  }
+  return mid;
+}
+
+// w[i] = the midpoint of index i's bracket after n_iter halvings, by groups
+// of 2^kL lanes, kL halvings a round.  With w0, a bracket that does not hold
+// index i at the start (count(a0) > i or count(b0) <= i) returns w0[i]
+// instead: the refinement's `valid` mask.
+template <bool kBand2, int kL>
 __global__ void __launch_bounds__(kThreads)
     sturm_bisect_kernel(int n, const double* s0, const double* s1,
                         const double* s2, const double* head,
                         const double* a0, const double* b0, const double* w0,
                         int n_iter, double* w) {
+  constexpr int kGroup = 1 << kL;
   __shared__ double stage[(kBand2 ? 3 : 2) * kChunk];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % kGroup;          // the lane's place in its group
+  const int first = lane - sub;           // the group's first lane
+  const int i = (blockIdx.x * kThreads + threadIdx.x) / kGroup;
   const bool live = i < n;
   double a = live ? a0[i] : 0.0, b = live ? b0[i] : 0.0;
   bool valid = true;
   if (w0 != nullptr) {
-    const int below_a = sturm_count<kBand2>(n, s0, s1, s2, head, a, stage);
-    const int below_b = sturm_count<kBand2>(n, s0, s1, s2, head, b, stage);
-    valid = below_a <= i && below_b > i;
+    const int below =
+        sturm_count<kBand2>(n, s0, s1, s2, head, sub == 1 ? b : a, stage);
+    const unsigned holds =
+        __ballot_sync(0xffffffffu, sub == 1 ? below > i : below <= i) >>
+        first;
+    valid = (holds & 3u) == 3u;
   }
-  for (int it = 0; it < n_iter; ++it) {
-    const double mid = __dmul_rn(0.5, __dadd_rn(a, b));
-    if (sturm_count<kBand2>(n, s0, s1, s2, head, mid, stage) > i)
-      b = mid;
-    else
-      a = mid;
+  for (int done = 0; done < n_iter; done += kL) {
+    const int levels = min(kL, n_iter - done);
+    const double x =
+        sub > 0 && sub < (1 << levels) ? heap_probe(sub, a, b) : a;
+    const int below = sturm_count<kBand2>(n, s0, s1, s2, head, x, stage);
+    const unsigned above = __ballot_sync(0xffffffffu, below > i) >> first;
+    int node = 1;
+    for (int l = 0; l < levels; ++l) {
+      const double mid = __dmul_rn(0.5, __dadd_rn(a, b));
+      const bool lower = (above >> node) & 1u;  // index i lies below mid
+      if (lower)
+        b = mid;
+      else
+        a = mid;
+      node = 2 * node + !lower;
+    }
   }
-  if (live) w[i] = valid ? __dmul_rn(0.5, __dadd_rn(a, b)) : w0[i];
+  if (live && sub == 0)
+    w[i] = valid ? __dmul_rn(0.5, __dadd_rn(a, b)) : w0[i];
+}
+
+template <bool kBand2, int kL>
+int launch(int n, const double* s0, const double* s1, const double* s2,
+           const double* head, const double* a0, const double* b0,
+           const double* w0, int n_iter, double* w, cudaStream_t s) {
+  constexpr int kIndices = kThreads >> kL;  // indices a block
+  const dim3 grid((n + kIndices - 1) / kIndices);
+  sturm_bisect_kernel<kBand2, kL><<<grid, kThreads, 0, s>>>(
+      n, s0, s1, s2, head, a0, b0, w0, n_iter, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -136,13 +202,9 @@ extern "C" int eigenexa_sturm_bisect_f64(int n, int band, const double* s0,
                                          int n_iter, double* w, void* stream) {
   if (n <= 0) return cudaSuccess;
   if ((band != 1 && band != 2) || n_iter < 0) return cudaErrorInvalidValue;
-  const dim3 grid((n + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (band == 1)
-    sturm_bisect_kernel<false><<<grid, kThreads, 0, s>>>(
-        n, s0, s1, s2, head, a0, b0, w0, n_iter, w);
-  else
-    sturm_bisect_kernel<true><<<grid, kThreads, 0, s>>>(
-        n, s0, s1, s2, head, a0, b0, w0, n_iter, w);
-  return static_cast<int>(cudaGetLastError());
+  return band == 1 ? launch<false, kLevelsBand1>(n, s0, s1, s2, head, a0, b0,
+                                                 w0, n_iter, w, s)
+                   : launch<true, kLevelsBand2>(n, s0, s1, s2, head, a0, b0,
+                                                w0, n_iter, w, s);
 }

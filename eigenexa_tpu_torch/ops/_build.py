@@ -107,9 +107,9 @@ def _build(target: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
-def resource_usage() -> str:
-    """What ptxas reports for every kernel of every source: registers a
-    thread, spill bytes, shared memory a block.  One ``nvcc
+def resource_usage(sources=_SOURCES) -> str:
+    """What ptxas reports for every kernel of the sources (all by default):
+    registers a thread, spill bytes, shared memory a block.  One ``nvcc
     --resource-usage`` per source, all started together; the objects are
     thrown away."""
     nvcc = _nvcc()
@@ -119,9 +119,9 @@ def resource_usage() -> str:
             [nvcc, *NVCC_FLAGS, "--resource-usage", "-c", "-o",
              str(Path(tmp) / (Path(src).stem + ".o")), str(_CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in _SOURCES]
+            for src in sources]
         return "".join(f"resource usage of {src}:\n{proc.communicate()[0]}"
-                       for src, proc in zip(_SOURCES, procs))
+                       for src, proc in zip(sources, procs))
 
 
 def load_library() -> ctypes.CDLL:

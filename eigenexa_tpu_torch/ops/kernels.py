@@ -17,10 +17,12 @@ hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
 * ``rank2k_update_window``: the windowed reduction's trailing update, in
   place on the same window;
 * ``sturm_bisect``: index-targeted Sturm bisection of a tridiagonal or
-  pentadiagonal matrix, one thread an eigenvalue index (modes N and X).
-  It is no TPU kernel's port: the JAX package runs the recurrence as a
-  ``lax.scan`` inside ``lax.fori_loop`` (``eigenexa_tpu/ops/sturm.py``),
-  which eager PyTorch on the card could only issue launch by launch.
+  pentadiagonal matrix (modes N and X), by multisection: a group of 2^L
+  lanes owns an eigenvalue index and probes the 2^L − 1 midpoints of the
+  next L bisection steps at once, which gives bisection's bits.  It is no
+  TPU kernel's port: the JAX package runs the recurrence as a ``lax.scan``
+  inside ``lax.fori_loop`` (``eigenexa_tpu/ops/sturm.py``), which eager
+  PyTorch on the card could only issue launch by launch.
 
 ``WIN_TM`` is the window granularity TM: a window starts at row and column
 ``t0·TM``.  It says nothing about the kernels' own tiles, and a matrix edge

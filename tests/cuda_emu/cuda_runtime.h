@@ -20,8 +20,8 @@
 // step in ascending order.  That order inside a k step is ASSUMED here: the
 // PTX ISA says which lane holds what, not how the tensor core rounds, and
 // only the card can check it (chip_smoke.py compares the kernel with cuBLAS).
-// `__shfl_xor_sync` exchanges values through per-warp slots at a warp
-// barrier in the same way.
+// `__shfl_xor_sync` and `__ballot_sync` exchange values through per-warp
+// slots at a warp barrier in the same way.
 //
 // cp.async: a thread's copies are queued in its open group; a commit closes
 // the group; `cp.async.wait_group N` performs, oldest first, the copies of
@@ -117,6 +117,19 @@ T __shfl_xor_sync(unsigned, T value, int mask) {
   slot[lane] = value;
   emu_warp_barrier[warp].wait();
   return static_cast<T>(slot[lane ^ unsigned(mask)]);
+}
+
+// __ballot_sync: bit l of the result is lane l's predicate, for every lane
+// of the warp, through the same slots and warp barrier.
+inline unsigned __ballot_sync(unsigned, int predicate) {
+  const unsigned lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  auto& slot = emu_shfl[emu_shfl_set[threadIdx.x]][warp];
+  emu_shfl_set[threadIdx.x] ^= 1;
+  slot[lane] = predicate != 0;
+  emu_warp_barrier[warp].wait();
+  unsigned bits = 0;
+  for (unsigned l = 0; l < 32; ++l) bits |= unsigned(slot[l] != 0.0) << l;
+  return bits;
 }
 
 struct EmuCopy {

@@ -7,12 +7,17 @@
 // from them as ops/kernels.py `sturm_setup` does, so a slip in either the
 // packing contract or the kernel's recurrence shows.
 //
-// Cases: band 1 and 2; n from 1 to 600 (several blocks of 128 and a chunk
-// of 512 staged twice); random bands; integer bands with zero couplings
-// probed at dyadic midpoints, where pivots meet 0 exactly and only the
-// pivmin clamps keep the counts finite; refinements with brackets that fail.
-// Prints one line a case and "ALL OK" or "FAIL"; exits non-zero on a
-// failure.
+// Cases: band 1 and 2; n from 1 to 600 (several blocks, n rarely a
+// multiple of a block's indices, and a chunk of 512 staged twice); random
+// bands; integer bands with zero couplings probed at dyadic midpoints, where
+// pivots meet 0 exactly and only the pivmin clamps keep the counts finite;
+// refinements with brackets that fail; n_iter 1, 2, 7, 45 and 70, most of
+// them no multiple of the levels L a round, so the last round is short.
+// All of these go through the C entry point (the L of each band); then a
+// few cases go through the launch of every L = 1 ... 5, groups of 2 to 32
+// lanes.  Prints one line a case and "ALL OK" or "FAIL"; exits non-zero on
+// a failure.  An argument runs only the cases whose name holds it (every
+// case is still made, so each gets the same bands).
 #include "kern.cpp"
 
 #include <algorithm>
@@ -23,6 +28,7 @@
 #include <vector>
 
 static std::mt19937 rng(7);
+static const char* only = nullptr;  // run only cases whose name holds this
 
 // count(x) as the JAX scans compute it, one rounding an operation
 static int count_plain(const std::vector<double>& d,
@@ -74,7 +80,18 @@ struct Case {
   int n_iter;
 };
 
-static bool run(const Case& c) {
+// a launch at a given L (levels a round): launch<band2, L> of the source
+using Launch = int (*)(int, const double*, const double*, const double*,
+                       const double*, const double*, const double*,
+                       const double*, int, double*, cudaStream_t);
+template <int kL>
+Launch at_levels(bool band2) {
+  return band2 ? launch<true, kL> : launch<false, kL>;
+}
+
+// levels 0: through the C entry point, at the L it picks for the band
+static bool run(const Case& c, int levels = 0, Launch at = nullptr) {
+  if (only != nullptr && strstr(c.name, only) == nullptr) return true;
   const int n = int(c.d.size());
   const std::vector<double>* e2 = c.band2 ? &c.e2 : nullptr;
   // the kernel's operands, packed as sturm_setup packs them
@@ -101,10 +118,16 @@ static bool run(const Case& c) {
             c.e1.empty() ? 0.0 : c.e1[0]};
   }
   std::vector<double> w(n + 1, std::nan("")), want(n);
-  const int err = eigenexa_sturm_bisect_f64(
-      n, c.band2 ? 2 : 1, s0.data(), s1.data(), c.band2 ? s2.data() : nullptr,
-      head.data(), c.a0.data(), c.b0.data(),
-      c.valid ? c.w0.data() : nullptr, c.n_iter, w.data(), nullptr);
+  const double* w0 = c.valid ? c.w0.data() : nullptr;
+  const double* p2 = c.band2 ? s2.data() : nullptr;
+  const int err =
+      levels == 0
+          ? eigenexa_sturm_bisect_f64(n, c.band2 ? 2 : 1, s0.data(),
+                                      s1.data(), p2, head.data(), c.a0.data(),
+                                      c.b0.data(), w0, c.n_iter, w.data(),
+                                      nullptr)
+          : at(n, s0.data(), s1.data(), p2, head.data(), c.a0.data(),
+               c.b0.data(), w0, c.n_iter, w.data(), nullptr);
   int kept = 0;
   for (int i = 0; i < n; ++i) {
     double a = c.a0[i], b = c.b0[i];
@@ -127,8 +150,9 @@ static bool run(const Case& c) {
   int off = 0;
   for (int i = 0; i < n; ++i)
     off += memcmp(&w[i], &want[i], 8) != 0;
-  printf("%-28s n=%3d band %d n_iter %2d valid %d kept_w0 %3d: %s (%d off)\n",
-         c.name, n, c.band2 ? 2 : 1, c.n_iter, c.valid, kept,
+  printf("%-28s n=%3d band %d L %d n_iter %2d valid %d kept_w0 %3d: %s "
+         "(%d off)\n",
+         c.name, n, c.band2 ? 2 : 1, levels, c.n_iter, c.valid, kept,
          same ? "bitwise equal" : "DIFFERS", off);
   return same;
 }
@@ -190,7 +214,8 @@ static Case exact_zero_case(const char* name, int n, bool band2, bool valid) {
   return c;
 }
 
-int main() {
+int main(int argc, char** argv) {
+  if (argc > 1) only = argv[1];
   bool ok = true;
   for (bool band2 : {false, true}) {
     for (int n : {1, 2, 3, 127, 129, 600}) {
@@ -205,7 +230,26 @@ int main() {
     ok &= run(exact_zero_case(band2 ? "exact zeros refine band2"
                                     : "exact zeros refine", 150, band2,
                               true));
+    for (int n_iter : {1, 2, 7, 45, 70})
+      for (bool valid : {false, true})
+        ok &= run(random_case(band2 ? "n_iter band2" : "n_iter band1",
+                              valid ? 77 : 45, band2, valid, n_iter));
   }
+  const Launch every_l[][2] = {
+      {at_levels<1>(false), at_levels<1>(true)},
+      {at_levels<2>(false), at_levels<2>(true)},
+      {at_levels<3>(false), at_levels<3>(true)},
+      {at_levels<4>(false), at_levels<4>(true)},
+      {at_levels<5>(false), at_levels<5>(true)}};
+  for (int levels = 1; levels <= 5; ++levels)
+    for (bool band2 : {false, true}) {
+      const Launch at = every_l[levels - 1][band2];
+      ok &= run(random_case(band2 ? "every L band2" : "every L band1", 33,
+                            band2, false, 7), levels, at);
+      ok &= run(random_case(band2 ? "every L refine band2"
+                                  : "every L refine band1", 45, band2, true,
+                            70), levels, at);
+    }
   printf(ok ? "ALL OK\n" : "FAIL\n");
   return ok ? 0 : 1;
 }

@@ -410,45 +410,55 @@ def test_eigen_s_on_the_card(cuda, dtype):
 
 def _bands(seed, n, band2, device):
     g = np.random.default_rng(seed)
-    out = [g.standard_normal(n), g.standard_normal(n - 1)]
-    out.append(g.standard_normal(n - 2) if band2 else None)
+    out = [g.standard_normal(n), g.standard_normal(max(n - 1, 0))]
+    out.append(g.standard_normal(max(n - 2, 0)) if band2 else None)
     return [None if x is None else torch.as_tensor(x, device=device)
             for x in out]
 
 
+@pytest.mark.parametrize("valid", [False, True])
 @pytest.mark.parametrize("band2", [False, True])
-def test_sturm_bisect_gives_the_plain_versions_bits(cuda, band2):
-    """n = 700 (six blocks of 128, the bands staged in two chunks of 512):
-    the bisection (70 steps) and the refinement (45, one bracket pushed off
-    its index) bitwise equal to the plain version on 40 indices, which runs
-    on copies on the CPU (each index's bracket evolves alone)."""
+def test_sturm_bisect_gives_the_plain_versions_bits(cuda, band2, valid):
+    """n = 1, 2, 31, 33, 700 and 1000 (none a multiple of a block's
+    indices but 1 and 2; n = 700 and 1000 stage the bands in two chunks of
+    512), each at n_iter = 1, 2, 7, 45 and 70 (most no multiple of the
+    levels a round, so the last round is short): bisection from the
+    Gershgorin brackets or, with the valid check, refinement around w0 with
+    index n // 2 pushed off its bracket, which must keep its w0.  Every case
+    bitwise equal to the plain version, which runs on copies on the CPU, on
+    every index up to n = 33 and on 40 indices above (each index's bracket
+    evolves alone).  The 70-step bisection agrees with the library's
+    eigenvalues."""
     from eigenexa_tpu_torch.ops import sturm
 
-    n = 700
-    d, e1, e2 = _bands(71, n, band2, cuda)
-    w_bisect = tk.sturm_bisect(d, e1, e2, *sturm.bisect_brackets(d, e1, e2),
-                               70)
-    w0 = w_bisect + 1e-9
-    w0[n // 2] += 100.0
-    idx = torch.linspace(0, n - 1, 40).round().long()
-    host = [None if x is None else x.cpu() for x in (d, e1, e2)]
-    for ends, n_iter, valid in (
-            (sturm.bisect_brackets(d, e1, e2), 70, False),
-            (sturm.refine_brackets(w0), 45, True)):
-        before = tk.LAUNCHES["sturm_bisect"]
-        got = tk.sturm_bisect(d, e1, e2, *ends, n_iter, valid, w0)
-        assert tk.LAUNCHES["sturm_bisect"] == before + 1
-        torch.cuda.synchronize()
-        want = tk._sturm_bisect_ref(*host, *(x.cpu() for x in ends), n_iter,
-                                    valid, w0.cpu(), idx=idx)
-        assert torch.equal(got.cpu()[idx], want)
-        if valid:
-            assert float(got[n // 2]) == float(w0[n // 2])
-    dense = torch.diag(d) + torch.diag(e1, 1) + torch.diag(e1, -1)
-    if band2:
-        dense += torch.diag(e2, 2) + torch.diag(e2, -2)
-    assert float((w_bisect - torch.linalg.eigvalsh(dense)).abs().max()) \
-        < 1e-12 * float(dense.abs().sum(1).max())
+    for n in (1, 2, 31, 33, 700, 1000):
+        d, e1, e2 = _bands(71 + n, n, band2, cuda)
+        host = [None if x is None else x.cpu() for x in (d, e1, e2)]
+        w_bisect = tk.sturm_bisect(d, e1, e2,
+                                   *sturm.bisect_brackets(d, e1, e2), 70)
+        w0 = w_bisect + 1e-9
+        w0[n // 2] += 100.0
+        ends = (sturm.refine_brackets(w0) if valid
+                else sturm.bisect_brackets(d, e1, e2))
+        idx = (None if n <= 33
+               else torch.linspace(0, n - 1, 40).round().long())
+        for n_iter in (1, 2, 7, 45, 70):
+            before = tk.LAUNCHES["sturm_bisect"]
+            got = tk.sturm_bisect(d, e1, e2, *ends, n_iter, valid, w0)
+            assert tk.LAUNCHES["sturm_bisect"] == before + 1
+            torch.cuda.synchronize()
+            want = tk._sturm_bisect_ref(*host, *(x.cpu() for x in ends),
+                                        n_iter, valid, w0.cpu(), idx=idx)
+            got = got.cpu()
+            assert torch.equal(got if idx is None else got[idx], want), \
+                (n, n_iter)
+            if valid:
+                assert float(got[n // 2]) == float(w0[n // 2])
+        dense = torch.diag(d) + torch.diag(e1, 1) + torch.diag(e1, -1)
+        if band2 and n > 2:
+            dense += torch.diag(e2, 2) + torch.diag(e2, -2)
+        assert float((w_bisect - torch.linalg.eigvalsh(dense)).abs().max()) \
+            < 1e-12 * float(dense.abs().sum(1).max())
 
 
 def test_sturm_bisect_raises_on_what_the_kernel_does_not_take(cuda):

@@ -429,13 +429,27 @@ def test_symv_source_mutants_fail_on_cpu_threads(symv_emu, mutant):
     assert run.returncode != 0 and run.stdout.splitlines()[-1] == "FAIL"
 
 
+# name: (text of csrc/sturm.cu, its replacement, the cases that must differ:
+# the mutant runs only the cases whose name holds this text)
 STURM_MUTANTS = {
     # the band-1 clamp of a pivot that meets zero
     "dropped_pivmin_band1": ("        if (fabs(q) < pivmin) q = -pivmin;\n",
-                             ""),
+                             "", "exact zeros"),
     # the band-2 clamp
     "dropped_pivmin_band2": (
-        "fabs(a) < pivmin ? (a >= 0.0 ? pivmin : -pivmin) : a;", "a;"),
+        "fabs(a) < pivmin ? (a >= 0.0 ? pivmin : -pivmin) : a;", "a;",
+        "exact zeros"),
+    # each probe straight from the bracket, a + k (b - a) / 2^L with k the
+    # node's rank in order: the same points in exact arithmetic, other
+    # roundings than the midpoints of a walk
+    "direct_probes": (
+        "heap_probe(sub, a, b)",
+        "(a + double((2 * (sub - (1 << (31 - __builtin_clz(sub)))) + 1)"
+        " << (levels - 1 - (31 - __builtin_clz(sub))))"
+        " * ((b - a) / (1 << levels)))", "refine"),
+    # the heap walk steps to the other child than its ballot bit says
+    "wrong_child": ("node = 2 * node + !lower;", "node = 2 * node + lower;",
+                    "n_iter"),
 }
 
 
@@ -455,13 +469,13 @@ def sturm_emu(tmp_path_factory):
     for name in (None, *STURM_MUTANTS):
         src = (REPO / "eigenexa_tpu_torch" / "csrc" / "sturm.cu").read_text()
         if name is not None:
-            old, new = STURM_MUTANTS[name]
+            old, new, _ = STURM_MUTANTS[name]
             assert src.count(old) == 1, name
             src = src.replace(old, new)
         src, count = re.subn(
-            r"(sturm_bisect_kernel<\w+>)<<<(\w+), kThreads, 0, s>>>\(\s*",
-            r"emu_launch(\1, \2, kThreads, ", src)
-        assert count == 2                  # one launch a band
+            r"(sturm_bisect_kernel<kBand2, kL>)<<<(\w+), kThreads, 0, s>>>"
+            r"\(\s*", r"emu_launch(\1, \2, kThreads, ", src)
+        assert count == 1                  # one launch, every band and L
         d = root / (name or "source")
         d.mkdir()
         (d / "kern.cpp").write_text(src)
@@ -479,24 +493,29 @@ def sturm_emu(tmp_path_factory):
 def test_sturm_source_equals_the_plain_loop_on_cpu_threads(sturm_emu):
     """csrc/sturm.cu itself, run as fibers on a CPU thread (see
     `sturm_emu`): every case, band 1 and 2, n from 1 to 600, random and
-    exact-zero bands, bisection and refinement, bitwise equal to a plain
-    loop over the raw bands, and nothing written past w."""
+    exact-zero bands, bisection and refinement, n_iter 1, 2, 7, 45 and 70
+    (a short last round), through the entry point and through the launch
+    of every L = 1 ... 5, bitwise equal to a plain loop over the raw bands,
+    and nothing written past w."""
     run = subprocess.run([str(sturm_emu[None])], capture_output=True,
                          text=True, timeout=120)
     assert run.returncode == 0, (run.stdout, run.stderr)
     lines = run.stdout.splitlines()
-    assert lines[-1] == "ALL OK" and len(lines) == 18
+    assert lines[-1] == "ALL OK" and len(lines) == 58
     assert all("bitwise equal" in line for line in lines[:-1])
 
 
 @pytest.mark.parametrize("mutant", list(STURM_MUTANTS))
 def test_sturm_source_mutants_fail_on_cpu_threads(sturm_emu, mutant):
-    """The exact-zero cases have teeth: without a pivmin clamp a pivot of
-    exactly 0 turns the rest of the recurrence into NaN."""
-    run = subprocess.run([str(sturm_emu[mutant])], capture_output=True,
-                         text=True, timeout=120)
+    """The cases have teeth: without a pivmin clamp a pivot of exactly 0
+    turns the rest of an exact-zero case's recurrence into NaN; probes
+    taken straight from the bracket round otherwise than the walk's
+    midpoints; a walk that reads the other child's bit loses the index."""
+    case = STURM_MUTANTS[mutant][2]
+    run = subprocess.run([str(sturm_emu[mutant]), case],
+                         capture_output=True, text=True, timeout=120)
     assert run.returncode != 0 and run.stdout.splitlines()[-1] == "FAIL"
-    assert any("exact zeros" in line and "DIFFERS" in line
+    assert any(case in line and "DIFFERS" in line
                for line in run.stdout.splitlines())
 
 

@@ -14,10 +14,11 @@ edited.
         rule1:kBigTilesPerSm=1 base
 
 A variant is ``name`` (the source as it is) or ``name:CONST=VALUE[,...]``,
-which rewrites ``constexpr <type> CONST = ...;``.  ``--replace NAME OLD NEW``
-adds a variant that replaces the text OLD (exactly once in the source) by
-NEW: a deliberately broken copy, to show that the checks have teeth; it is
-expected to exit non-zero.  Name a variant twice (first and last) to see the
+which rewrites ``constexpr <type> CONST = ...;``; ``name@FILE`` takes FILE
+as the source (an older version of it, with the same entry points).
+``--replace NAME OLD NEW`` adds a variant that replaces the text OLD
+(exactly once in the source) by NEW: a deliberately broken copy, to show
+that the checks have teeth; it is expected to exit non-zero.  Name a variant twice (first and last) to see the
 run's own spread.  The full output of each variant goes to
 ``<out>/variant_<position>_<name>.txt``; ``--out DIR`` before the variants
 names the directory (default ``build/variants``).
@@ -32,6 +33,12 @@ such batches, so that the host's launch overhead does not hide a kernel of
 (``=100000``) it shows where the launch rule should cross.  ``--sweep64``
 does the same over f64 squares m = 1024 ... 16384; it checks nothing, so
 it also times copies that leave out a part of the kernel on purpose.
+``--sweep-sturm`` (with ``--source sturm.cu``) times ``sturm_bisect`` at
+Frank n = 8192, bisection and refinement, band 1 and 2, and prints a
+digest of each result's bits, which all correct variants share:
+
+    python3 tools/kernel_variants.py --sweep-sturm --source sturm.cu \\
+        old@build/sturm_old.cu L2:kLevelsBand1=2,kLevelsBand2=2 base
 """
 
 import json
@@ -45,7 +52,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 CSRC = Path("eigenexa_tpu_torch") / "csrc"
 SOURCE_KERNELS = {"sub_matmul.cu": ("sub_matmul", "rank2k_update_window"),
-                  "symv_lower.cu": ("symv_lower",)}
+                  "symv_lower.cu": ("symv_lower",),
+                  "sturm.cu": ("sturm_bisect",)}
 SWEEP = """
 import statistics, torch
 from eigenexa_tpu_torch.ops import kernels
@@ -69,6 +77,47 @@ for m in SIZES:
           f"ms={statistics.median(times):.5f} min={min(times):.5f}",
           flush=True)
 """
+# sturm_bisect on the bands of Frank n's reductions, the operands of modes N
+# and X: bisection (70 steps) and refinement (45 and the valid check, w0 the
+# library's eigenvalues with index n // 3 pushed out), band 1 and 2; device
+# time as chip_smoke's (3 launches between two events, median of 3), and a
+# digest of the bits, which every correct variant shares; first what ptxas
+# reports for the source.  The bands and w0 are made once and kept in BANDS
+# for the variants that follow.
+STURM_SWEEP = """
+import hashlib, json, os, torch
+import chip_smoke as cs
+from eigenexa_tpu_torch.ops import _build, kernels, sturm
+dev = torch.device(DEV)
+if dev.type == "cuda":
+    print(_build.resource_usage(("sturm.cu",)), flush=True)
+if os.path.exists(BANDS):
+    kept = torch.load(BANDS)
+else:
+    kept = {}
+    for b, (d, e1, e2) in cs.frank_bands(dev, N).items():
+        dense = torch.diag(d) + torch.diag(e1, 1) + torch.diag(e1, -1)
+        if e2 is not None:
+            dense += torch.diag(e2, 2) + torch.diag(e2, -2)
+        w0 = torch.linalg.eigvalsh(dense)
+        w0[N // 3] += 10.0 * float(w0.abs().max())
+        kept[b] = [None if x is None else x.cpu() for x in (d, e1, e2, w0)]
+    torch.save(kept, BANDS)
+for b, host in sorted(kept.items()):
+    d, e1, e2, w0 = (None if x is None else x.to(dev) for x in host)
+    for op, n_iter, valid in (("bisect", 70, False), ("refine", 45, True)):
+        ends = (sturm.refine_brackets(w0) if valid
+                else sturm.bisect_brackets(d, e1, e2))
+        args = (d, e1, e2, *ends, n_iter, valid, w0)
+        w = kernels.sturm_bisect(*args).cpu()
+        row = {"case": f"{op}_band{b}", "n": N,
+               "sha": hashlib.sha256(w.numpy().tobytes()).hexdigest()[:16],
+               "kept_w0": not valid or float(w[N // 3]) == float(w0[N // 3])}
+        if dev.type == "cuda":
+            row["device_ms"] = cs._device_ms(
+                lambda: kernels.sturm_bisect(*args), dev, 3, 3)
+        print("sturm " + json.dumps(row), flush=True)
+"""
 SWEEP_SIZES = {
     "--sweep": ("torch.float32", (512, 768, 1024, 1280, 1536, 1792, 2048,
                                   2304, 2560, 3072, 4096)),
@@ -90,8 +139,8 @@ def _edited(text: str, consts: dict, replace) -> str:
     return text
 
 
-def _run_variant(position: int, name: str, consts: dict, replace,
-                 sweep, out_dir: Path, source: str) -> None:
+def _run_variant(position: int, name: str, consts: dict, replace, path,
+                 sweep, out_dir: Path, source: str, work: Path) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         shutil.copy(REPO / "chip_smoke.py", root)
@@ -99,8 +148,13 @@ def _run_variant(position: int, name: str, consts: dict, replace,
                         root / "eigenexa_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         src = root / CSRC / source
-        src.write_text(_edited(src.read_text(), consts, replace))
-        if sweep:
+        text = (path or src).read_text()
+        src.write_text(_edited(text, consts, replace))
+        if sweep == "--sweep-sturm":
+            command = ["-c", f"DEV = 'cuda'\nN = 8192\n"
+                       f"BANDS = {str(work / 'sturm_bands.pt')!r}\n"
+                       f"{STURM_SWEEP}"]
+        elif sweep:
             dtype, sizes = SWEEP_SIZES[sweep]
             command = ["-c", f"import torch\nDTYPE = {dtype}\n"
                        f"SIZES = {sizes}\n{SWEEP}"]
@@ -116,7 +170,7 @@ def _run_variant(position: int, name: str, consts: dict, replace,
           f"{replace is not None}: exit {proc.returncode}", flush=True)
     _print_summary(proc.stdout, source)
     print("".join(f"  {line}\n" for line in proc.stdout.splitlines()
-                  if line.startswith("sweep ")), end="")
+                  if line.startswith(("sweep ", "sturm "))), end="")
     if proc.returncode != 0:
         tail = (proc.stderr.strip().splitlines() or ["(no stderr)"])[-1]
         print(f"  failed with: {tail[:600]}")
@@ -130,8 +184,8 @@ def _print_summary(stdout: str, source: str) -> None:
         if line.startswith("resource usage of "):
             in_source = source in line
         if in_source and "Used" in line and "registers" in line:
-            kernel = re.search(r"(sub_matmul|symv)_\w*kernel\w*",
-                               lines[i - 2])
+            kernel = re.search(
+                r"(sub_matmul|symv|sturm_bisect)_\w*kernel\w*", lines[i - 2])
             spill = lines[i - 1].strip()
             print(f"  {kernel.group(0)[:36] if kernel else '?'}: "
                   f"{line.split(':', 1)[1].strip()}; {spill}")
@@ -142,7 +196,7 @@ def _print_summary(stdout: str, source: str) -> None:
             keys = ("ms", "device_ms", "library_device_ms", "bound_ms",
                     "max_abs_err", "bitwise_equal", "bitwise_plain")
             print(f"  {row['name']} {row['case']} {row['dtype']} "
-                  f"m={row['m']}: "
+                  f"m={row.get('m', row.get('n'))}: "
                   + " ".join(f"{k}={row[k]:.6g}" if isinstance(
                       row[k], float) else f"{k}={row[k]}"
                       for k in keys if k in row))
@@ -151,7 +205,8 @@ def _print_summary(stdout: str, source: str) -> None:
 def main(argv) -> int:
     variants = []
     args = list(argv)
-    sweep = args.pop(0) if args[:1] in (["--sweep"], ["--sweep64"]) else None
+    sweep = (args.pop(0) if args[:1] in (["--sweep"], ["--sweep64"],
+                                         ["--sweep-sturm"]) else None)
     source = "sub_matmul.cu"
     if args[:1] == ["--source"]:
         source = args[1]
@@ -166,17 +221,20 @@ def main(argv) -> int:
         arg = args.pop(0)
         if arg == "--replace":
             name, old, new = args.pop(0), args.pop(0), args.pop(0)
-            variants.append((name, {}, (old, new)))
+            variants.append((name, {}, (old, new), None))
             continue
         name, _, spec = arg.partition(":")
+        name, _, path = name.partition("@")
         consts = dict(item.split("=", 1) for item in spec.split(",") if item)
-        variants.append((name, consts, None))
+        variants.append((name, consts, None,
+                         Path(path).resolve() if path else None))
     if not variants:
         print(__doc__)
         return 2
-    for position, (name, consts, replace) in enumerate(variants):
-        _run_variant(position, name, consts, replace, sweep, out_dir,
-                     source)
+    with tempfile.TemporaryDirectory() as work:
+        for position, (name, consts, replace, path) in enumerate(variants):
+            _run_variant(position, name, consts, replace, path, sweep,
+                         out_dir, source, Path(work))
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
