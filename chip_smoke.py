@@ -46,6 +46,10 @@ result line:
               blocks to the other f32 kernel) and f64: bitwise equal.  Each
               f64 ``sub_matmul`` line also says whether the DMMA kernel
               gives the plain version's bits (``bitwise_plain``, not gated);
+              then ``sub_matmul`` on c64 and c128 (B − P·Qᴴ) at the
+              Hermitian path's shapes (the first rolled panel in place on
+              its strided view, a WY block), a ragged shape with k = 5 and
+              130, and its large case against row blocks, bitwise;
 4. slice    — the rolled path: ``eigen_s(frank(8192, float32))`` cold, warm
               and with the stage split; checks residual, orthogonality, the
               scaled eigenvalue error, the kernel launch counts per solve
@@ -72,7 +76,19 @@ result line:
               within that test of mode A's, ``sturm_bisect`` once a solve;
               then mode R: each reduction's bands saved to a temporary
               directory and solved from there, bitwise equal to the solve
-              of the same arrays.
+              of the same arrays;
+9. hermitian — ``eigen_h`` on the phased Frank matrix D·F·Dᴴ at n = 8192,
+              c64 and c128, cold and warm: residual, orthogonality, w_scaled
+              (c64) or the strict w_test (c128), 191 ``sub_matmul`` launches
+              a solve, bitwise equal reruns, the stage split and peak
+              memory, ``torch.linalg.eigh`` on the same matrices (timed, not
+              gated); then modes N, X, T, S and C at c128 n = 4096, each
+              with its check;
+10. gev     — ``eigen_gev`` at n = 8192 f64, A = Frank and B = ``designed
+              (linspace(1, 2, n))``: mode A cold and warm (gev_residual,
+              b_orthogonality, bitwise equal, 2 × 191 ``sub_matmul``
+              launches, the stage split), mode N within the strict w_test
+              of mode A's w with one ``sturm_bisect`` launch.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last three lines are the kernels JSON object, the
@@ -115,7 +131,11 @@ NB_B = 128    # SolverConfig.panel_backward
 KERNELS = {
     "sub_matmul": {
         "source": "eigenexa_tpu_torch/csrc/sub_matmul.cu",
-        "replaces": "eigenexa_tpu/ops/pallas_kernels.py:99"},
+        "replaces": "eigenexa_tpu/ops/pallas_kernels.py:99",
+        # the c64 and c128 entry points: complex never reached the Pallas
+        # kernel, whose eligibility rule sent it to b - p @ conj(q).T
+        "replaces_complex": "eigenexa_tpu/ops/pallas_kernels.py:133 "
+                            "(_shape_eligible: complex took the jnp form)"},
     "symv_lower": {
         "source": "eigenexa_tpu_torch/csrc/symv_lower.cu",
         "replaces": "eigenexa_tpu/ops/pallas_kernels.py:211"},
@@ -130,13 +150,16 @@ KERNELS = {
                     "kernel)"},
 }
 # error bound factor per dtype: only the summation order differs
-ERR_C = {"float32": 1e-5, "float64": 1e-13}
+ERR_C = {"float32": 1e-5, "float64": 1e-13, "complex64": 1e-5,
+         "complex128": 1e-13}
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # and the best rate the card has for exact arithmetic of each type, whether
 # or not the kernels reach for it: FP32 on the CUDA cores (TF32 is a lower
-# precision), FP64 on the FP64 Tensor Cores (DMMA)
+# precision), FP64 on the FP64 Tensor Cores (DMMA); a complex type's real
+# operations at its real type's rate, 8 of them a complex multiply-add
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "complex64": 67e12,
+              "complex128": 67e12}
 # FP64 on the CUDA cores (NVIDIA data sheet, H100 SXM): the Sturm recurrence
 # is scalar divisions, multiplies and subtractions, no tensor-core shape
 PEAK_FP64_CUDA_CORES = 34e12
@@ -145,7 +168,8 @@ PEAK_FP64_CUDA_CORES = 34e12
 # three multiplies, four subtractions, three comparisons
 STURM_STEP_OPS = {1: 5, 2: 12}
 N_STURM = 1024     # every index checked against the plain version on the card
-ITEMSIZE = {"float32": 4, "float64": 8}
+N_MODES_H = 4096   # eigen_h's modes N, X, T, S and C at c128
+ITEMSIZE = {"float32": 4, "float64": 8, "complex64": 8, "complex128": 16}
 
 
 def _gpu_line() -> str:
@@ -300,9 +324,18 @@ def _bound(dtype: str, elements: float, flops: float) -> dict:
 
 
 def _product_err_bound(dtype: str, b, p, q, k: int) -> float:
-    """Bound on |kernel − plain| for B − P·Qᵀ over k terms."""
+    """Bound on |kernel − plain| for B − P·Qᴴ over k terms: 2k real terms
+    a complex dot, with the moduli |P|·|Q|."""
+    terms = 2 * k if dtype.startswith("complex") else k
     return ERR_C[dtype] * (float(b.abs().max())
-                           + k * float(p.abs().max()) * float(q.abs().max()))
+                           + terms * float(p.abs().max())
+                           * float(q.abs().max()))
+
+
+def _matmul_ops(dtype: str, m: int, n: int, k: int) -> float:
+    """Real operations of B − P·Qᴴ: 2 a real multiply-add, 8 a complex
+    one."""
+    return (8.0 if dtype.startswith("complex") else 2.0) * m * n * k
 
 
 def _name(dtype) -> str:
@@ -391,64 +424,107 @@ def kernel_phase(device, n_main: int, timed: bool, n_win: int = N_WINDOWED,
     """Compare sub_matmul with its plain version; returns one result row
     per (case, dtype).  `sizes` go to :func:`kernel_cases`."""
     import torch
+
+    gen = torch.Generator(device=device).manual_seed(1234)
+    return [_kernel_case(device, gen, dtype, timed, *case)
+            for dtype in (torch.float32, torch.float64)
+            for case in kernel_cases(n_main, n_win, **sizes)]
+
+
+def complex_kernel_cases(n_main: int, ragged=(1000, 777)):
+    """(label, m, n, k, view) of the complex kernels, as
+    :func:`kernel_cases`: the Hermitian path's first rolled panel, in place
+    on the view ``work[64:, 64:]`` of the n_main × n_main working matrix,
+    a full WY block of its back-transform, and a ragged shape with k = 5
+    and with k = 130, the latter in place on an offset view with an odd
+    leading dimension."""
+    m, n = ragged
+    return [("rank2k", n_main - 64, n_main - 64, 128, (64, 0, 0)),
+            ("wy", n_main, n_main, 128, None),
+            ("ragged_k5", m, n, 5, None),
+            ("ragged_k130", m, n, 130, (37, 3, 2))]
+
+
+def complex_kernel_phase(device, n_main: int, timed: bool, block: int = 384,
+                         **sizes):
+    """sub_matmul on c64 and c128 against its plain version, with
+    ``torch.addmm(b, p, q.conj().T, alpha=-1)`` (the JAX package's own form
+    of the complex case) as the library call; then the first case in one
+    call against the same product in row blocks of `block`, bitwise equal
+    on the card (both take the same kernel, whose sums do not depend on
+    where a tile lies).  Returns one row per (case, dtype)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(5678)
+    rows = []
+    for dtype in (torch.complex64, torch.complex128):
+        cases = complex_kernel_cases(n_main, **sizes)
+        rows += [_kernel_case(device, gen, dtype, timed, *case)
+                 for case in cases]
+        _, m, n, k, _ = cases[0]
+        rows.append(_same_bits_case(device, gen, dtype, "same_bits_rank2k",
+                                    m, n, k, n_main, block))
+    return rows
+
+
+def _kernel_case(device, gen, dtype, timed: bool, label: str, m: int,
+                 n: int, k: int, view):
+    """One case of :func:`kernel_cases` or :func:`complex_kernel_cases`:
+    the kernel against its plain version, timed beside the library call
+    and the bound if `timed`."""
+    import torch
     from eigenexa_tpu_torch.ops import kernels
 
-    rows = []
-    gen = torch.Generator(device=device).manual_seed(1234)
-    for dtype in (torch.float32, torch.float64):
-        for label, m, n, k, view in kernel_cases(n_main, n_win, **sizes):
-            def rnd(*shape):
-                return torch.randn(*shape, generator=gen, dtype=dtype,
-                                   device=device)
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype, device=device)
 
-            if view is None:
-                p, q = rnd(m, k), rnd(n, k)
-                b = rnd(m, n)
-                ref = kernels._sub_matmul_ref(b, p, q)
-                out = kernels.sub_matmul(b, p, q)
-                outside_ok = True
-            else:
-                off, pad, kpad = view
-                p, q = rnd(m, k + kpad)[:, :k], rnd(n, k + kpad)[:, :k]
-                buf = rnd(m + off, n + off + pad)
-                inside = torch.zeros_like(buf, dtype=torch.bool)
-                inside[off:, off:off + n] = True
-                before = buf[~inside]
-                view = buf[off:, off:off + n]
-                b = view.clone()
-                ref = kernels._sub_matmul_ref(view, p, q)
-                out = kernels.sub_matmul(view, p, q, out=view)
-                if out.data_ptr() != view.data_ptr():
-                    raise AssertionError("in-place call did not write B")
-                outside_ok = torch.equal(buf[~inside], before)
-                del inside, before
-            _sync(device)
-            err = float((out - ref).abs().max())
-            same = bool(torch.equal(out, ref))
-            del out, ref
-            bound = _product_err_bound(_name(dtype), b, p, q, k)
-            row = {"name": "sub_matmul", "case": label,
-                   "dtype": _name(dtype), "m": m, "n": n, "k": k,
-                   "max_abs_err": err, "bound": bound}
-            if dtype == torch.float64:
-                # reported, not gated: whether DMMA gives cuBLAS's bits
-                row["bitwise_plain"] = same
-            if timed:
-                # a view is timed as it is, in place: some hundreds of
-                # updates of N(0,1) data by the same product stay finite
-                tb = b if view is None else view
-                o = torch.empty_like(b) if view is None else view
-                _times(row, lambda: kernels.sub_matmul(tb, p, q, out=o),
-                       lambda: kernels._sub_matmul_ref(tb, p, q),
-                       lambda: torch.addmm(tb, p, q.T, alpha=-1, out=o),
-                       device)
-                row.update(_bound(_name(dtype), 2 * m * n + (m + n) * k,
-                                  2.0 * m * n * k))
-                del o, tb
-            rows.append(_report(row, err <= bound and outside_ok,
-                                f"disagrees with its plain version (outside "
-                                f"view untouched: {outside_ok})"))
-    return rows
+    if view is None:
+        p, q = rnd(m, k), rnd(n, k)
+        b = rnd(m, n)
+        ref = kernels._sub_matmul_ref(b, p, q)
+        out = kernels.sub_matmul(b, p, q)
+        outside_ok = True
+    else:
+        off, pad, kpad = view
+        p, q = rnd(m, k + kpad)[:, :k], rnd(n, k + kpad)[:, :k]
+        buf = rnd(m + off, n + off + pad)
+        inside = torch.zeros(buf.shape, dtype=torch.bool, device=device)
+        inside[off:, off:off + n] = True
+        before = buf[~inside]
+        view = buf[off:, off:off + n]
+        b = view.clone()
+        ref = kernels._sub_matmul_ref(view, p, q)
+        out = kernels.sub_matmul(view, p, q, out=view)
+        if out.data_ptr() != view.data_ptr():
+            raise AssertionError("in-place call did not write B")
+        outside_ok = torch.equal(buf[~inside], before)
+        del inside, before
+    _sync(device)
+    err = float((out - ref).abs().max())
+    same = bool(torch.equal(out, ref))
+    del out, ref
+    name = _name(dtype)
+    bound = _product_err_bound(name, b, p, q, k)
+    row = {"name": "sub_matmul", "case": label, "dtype": name, "m": m,
+           "n": n, "k": k, "max_abs_err": err, "bound": bound}
+    if dtype in (torch.float64, torch.complex128):
+        # reported, not gated: whether DMMA gives cuBLAS's bits
+        row["bitwise_plain"] = same
+    if timed:
+        # a view is timed as it is, in place: some hundreds of updates of
+        # N(0,1) data by the same product stay finite
+        tb = b if view is None else view
+        o = torch.empty_like(b) if view is None else view
+        _times(row, lambda: kernels.sub_matmul(tb, p, q, out=o),
+               lambda: kernels._sub_matmul_ref(tb, p, q),
+               lambda: torch.addmm(tb, p, q.conj().T, alpha=-1, out=o),
+               device)
+        row.update(_bound(name, 2 * m * n + (m + n) * k,
+                          _matmul_ops(name, m, n, k)))
+        del o, tb
+    return _report(row, err <= bound and outside_ok,
+                   f"disagrees with its plain version (outside view "
+                   f"untouched: {outside_ok})")
 
 
 def same_bits_phase(device, big: int = BIG, block: int = 384):
@@ -461,36 +537,40 @@ def same_bits_phase(device, big: int = BIG, block: int = 384):
     promise no such thing: there only the error bound is held.  Returns one
     result row per case."""
     import torch
+
+    gen = torch.Generator(device=device).manual_seed(3412)
+    return [_same_bits_case(device, gen, dtype, *case, block)
+            for dtype in (torch.float32, torch.float64)
+            for case in (("same_bits", big, big, 128, big),
+                         ("same_bits_odd_ld", big - 24, big - 127, 100,
+                          big - 23))]
+
+
+def _same_bits_case(device, gen, dtype, label: str, m: int, n: int, k: int,
+                    ld: int, block: int):
+    """B (m, n) with leading dimension ld, in one sub_matmul call and in
+    row blocks: bitwise equal on the card, within the bound elsewhere."""
+    import torch
     from eigenexa_tpu_torch.ops import kernels
 
-    rows = []
-    gen = torch.Generator(device=device).manual_seed(3412)
-    for dtype in (torch.float32, torch.float64):
-        for label, m, n, k, ld in (("same_bits", big, big, 128, big),
-                                   ("same_bits_odd_ld", big - 24, big - 127,
-                                    100, big - 23)):
-            def rnd(*shape):
-                return torch.randn(*shape, generator=gen, dtype=dtype,
-                                   device=device)
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype, device=device)
 
-            b, p, q = rnd(m, ld)[:, :n], rnd(m, k), rnd(n, k)
-            whole = kernels.sub_matmul(b, p, q)
-            blocks = torch.empty_like(whole)
-            for r0 in range(0, m, block):
-                kernels.sub_matmul(b[r0:r0 + block], p[r0:r0 + block], q,
-                                   out=blocks[r0:r0 + block])
-            _sync(device)
-            equal = bool(torch.equal(whole, blocks))
-            err = float((whole - blocks).abs().max())
-            bound = _product_err_bound(_name(dtype), b, p, q, k)
-            row = {"name": "sub_matmul", "case": label,
-                   "dtype": _name(dtype), "m": m, "n": n, "k": k,
-                   "block_rows": block, "max_abs_err": err, "bound": bound,
-                   "bitwise_equal": equal}
-            rows.append(_report(
-                row, equal if device.type == "cuda" else err <= bound,
-                "whole and in row blocks give other bits"))
-    return rows
+    b, p, q = rnd(m, ld)[:, :n], rnd(m, k), rnd(n, k)
+    whole = kernels.sub_matmul(b, p, q)
+    blocks = torch.empty_like(whole)
+    for r0 in range(0, m, block):
+        kernels.sub_matmul(b[r0:r0 + block], p[r0:r0 + block], q,
+                           out=blocks[r0:r0 + block])
+    _sync(device)
+    equal = bool(torch.equal(whole, blocks))
+    err = float((whole - blocks).abs().max())
+    bound = _product_err_bound(_name(dtype), b, p, q, k)
+    row = {"name": "sub_matmul", "case": label, "dtype": _name(dtype),
+           "m": m, "n": n, "k": k, "block_rows": block, "max_abs_err": err,
+           "bound": bound, "bitwise_equal": equal}
+    return _report(row, equal if device.type == "cuda" else err <= bound,
+                   "whole and in row blocks give other bits")
 
 
 def symv_cases(m_main: int, m_f64: int):
@@ -1119,6 +1199,216 @@ def _mode_r(device, n: int, w_true) -> None:
             del w_f, z_f, w_t, z_t
 
 
+def _check_hermitian(label, a, w, z, w_true, strict: bool) -> None:
+    """Shapes and finiteness; residual and orthogonality PASS; in c64
+    w_scaled of w cast to f32 PASS (as the f32 eigen_s phase holds it); in
+    c128 the strict √ε w_test never a hard FAIL, w_scaled printed."""
+    import torch
+    from eigenexa_tpu_torch.testing import (eigenvalue_check,
+                                            eigenvalue_check_scaled,
+                                            orthogonality_check,
+                                            residual_check)
+
+    n = a.shape[0]
+    if w.shape != (n,) or z.shape != (n, n) or z.dtype != a.dtype:
+        raise AssertionError(f"{label}: bad output shapes/dtypes {w.shape} "
+                             f"{z.shape} {z.dtype}")
+    if not bool(torch.isfinite(w).all() & torch.isfinite(z).all()):
+        raise AssertionError(f"{label}: non-finite eigenpairs")
+    res = residual_check(a, z, w)
+    orth = orthogonality_check(z)
+    real = torch.float64 if strict else torch.float32
+    wsc = eigenvalue_check_scaled(w.to(real), w_true)
+    ok = res.passed and orth.passed
+    if strict:
+        wt = eigenvalue_check(w, w_true)
+        ok = ok and (wt.passed or wt.caution)
+        print(f"{label} checks: {res} {orth} {wt} {wsc} (w_scaled not "
+              f"gated)", flush=True)
+    else:
+        ok = ok and wsc.passed
+        print(f"{label} checks: {res} {orth} {wsc}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} checks failed")
+
+
+def hermitian_phase(device, n: int = N_SLICE, n_modes: int = N_MODES_H):
+    """eigen_h on the phased Frank matrix D·F·Dᴴ (``frank_hermitian``,
+    Frank's exact spectrum): c64 and c128 cold, then warm with the stage
+    split and the peak device memory; each with its checks
+    (:func:`_check_hermitian`), the sub_matmul launches of a rolled solve
+    and bitwise equal cold and warm solves.  Then torch.linalg.eigh on the
+    same matrices (the incumbent, timed cold and warm, not gated), and
+    modes N, X, T, S and C at c128 n_modes beside mode A, each with its
+    check.  Returns the launches of the cold c64 and c128 solves."""
+    import torch
+    from eigenexa_tpu_torch import eigen_h
+    from eigenexa_tpu_torch.ops import kernels
+    from eigenexa_tpu_torch.testing import frank_hermitian, frank_spectrum
+
+    w_true = frank_spectrum(n, torch.float64, device)
+    want = _want(sub_matmul=expected_launches(n))
+    launches = {}
+    for dtype in (torch.complex64, torch.complex128):
+        name = _name(dtype)
+        a = frank_hermitian(n, dtype, seed=0, device=device)
+        _reset_launches(kernels)
+        w1, z1, cold = eigen_h(a)
+        counts = [_take_launches(kernels)]
+        resident = _mem_mark(device)
+        w2, z2, warm = eigen_h(a, profile=True)
+        peak = _mem_peak(device, resident)
+        counts.append(_take_launches(kernels))
+        same = bool(torch.equal(w1, w2) and torch.equal(z1, z2))
+        del w1, z1
+        print(f"hermitian: Frank-phased n={n} {name} eigen_h cold "
+              f"{cold.elapsed:.4f} s, warm {warm.elapsed:.4f} s = "
+              f"{warm.gflops:.2f} GFLOP/s (4x flop_model {warm.flops:.6g}); "
+              f"peak device memory of the warm solve above the resident "
+              f"{resident} bytes: {peak} bytes; launches per solve "
+              f"{counts} (expected {want}); cold and warm bitwise equal: "
+              f"{same}", flush=True)
+        warm.stage_report(lambda line, name=name: print(
+            f"hermitian {name} stage" + line, flush=True))
+        _check_hermitian(f"hermitian {name}", a, w2, z2, w_true,
+                         strict=dtype == torch.complex128)
+        if counts != [want] * 2 or not same:
+            raise AssertionError(f"hermitian {name}: launch counts {counts} "
+                                 f"or cold and warm differ")
+        launches[name] = counts[0]
+        del w2, z2
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            we, _ = torch.linalg.eigh(a)
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        print(f"hermitian: incumbent torch.linalg.eigh on the same {name} "
+              f"matrix: cold {times[0]:.4f} s, warm {times[1]:.4f} s; "
+              f"max |w - w_true| {float((we.double() - w_true).abs().max())}"
+              , flush=True)
+        del a, we
+        _empty_cache(device)
+    _hermitian_modes(device, n_modes)
+    return launches["complex64"], launches["complex128"]
+
+
+def _hermitian_modes(device, n: int) -> None:
+    """Modes A, N, X, T, S and C of eigen_h at c128 n on the phased Frank
+    matrix: N within the strict w_test of A's values (the dense eigvalsh of
+    T); X bitwise A's (no refinement); T with A's values and the real,
+    orthonormal vectors of T; S with Q's orthonormal columns and C with
+    the identity, both with T's diagonal, whose sum is A's trace.  Each
+    with the sub_matmul launches its stages make."""
+    import torch
+    from eigenexa_tpu_torch import eigen_h
+    from eigenexa_tpu_torch.ops import kernels
+    from eigenexa_tpu_torch.testing import (eigenvalue_check,
+                                            frank_hermitian, frank_spectrum,
+                                            orthogonality_check)
+
+    a = frank_hermitian(n, torch.complex128, seed=1, device=device)
+    w_true = frank_spectrum(n, torch.float64, device)
+    trace = float(a.diagonal().real.sum())
+    panels, full = _full_panels(n, NB_F), expected_launches(n)
+    w_a = z_a = None
+    for mode in "ANXTSC":
+        _reset_launches(kernels)
+        w, z, info = eigen_h(a, mode=mode)
+        counts = _take_launches(kernels)
+        want = _want(sub_matmul=full if mode in "AXS" else panels)
+        label = f"hermitian modes {mode}"
+        if mode == "A":
+            _check_hermitian(label, a, w, z, w_true, strict=True)
+            w_a, z_a = w, z
+            ok = True
+        elif mode == "N":
+            wt, wa = eigenvalue_check(w, w_true), eigenvalue_check(w, w_a)
+            print(f"{label} checks: {wt}, against mode A's w {wa}",
+                  flush=True)
+            ok = z is None and all(c.passed or c.caution for c in (wt, wa))
+        elif mode == "X":
+            ok = bool(torch.equal(w, w_a) and torch.equal(z, z_a))
+        elif mode == "T":
+            orth = orthogonality_check(z)
+            ok = (bool(torch.equal(w, w_a)) and not bool(z.imag.any())
+                  and orth.passed)
+            print(f"{label} checks: {orth}", flush=True)
+        else:
+            rel = abs(float(w.sum()) - trace) / abs(trace)
+            orth = orthogonality_check(z)
+            ok = rel < 1e-10 and orth.passed
+            if mode == "C":
+                ok = ok and bool(torch.equal(
+                    z, torch.eye(n, dtype=z.dtype, device=device)))
+            print(f"{label} checks: sum of T's diagonal against the trace "
+                  f"{rel:.3g}, {orth}", flush=True)
+        print(f"{label}: n={n} c128 {info.elapsed:.4f} s; launches "
+              f"{json.dumps(counts)} (expected {json.dumps(want)}); "
+              f"checks held: {ok}", flush=True)
+        if not ok or counts != want:
+            raise AssertionError(f"{label} failed")
+        del w, z
+    del a, w_a, z_a
+    _empty_cache(device)
+
+
+def gev_phase(device, n: int = N_F64):
+    """eigen_gev at n f64: A = Frank, B = ``designed(linspace(1, 2, n))``
+    built on the card.  Mode A cold, then warm with the stage split
+    (eigen_s(B), F and FᵀAF, eigen_s(A′), F·Z′) and the peak device memory:
+    gev_residual and b_orthogonality PASS, bitwise equal, 2 × 191
+    sub_matmul launches (two rolled eigen_s solves).  Mode N: its w within
+    the strict w_test of mode A's, one sturm_bisect launch.  Returns the
+    launches of the cold mode A solve and of mode N."""
+    import torch
+    from eigenexa_tpu_torch import eigen_gev
+    from eigenexa_tpu_torch.ops import kernels
+    from eigenexa_tpu_torch.testing import (b_orthogonality_check, designed,
+                                            eigenvalue_check, frank,
+                                            gev_residual_check)
+
+    a = frank(n, torch.float64, device)
+    b = designed(torch.linspace(1.0, 2.0, n, dtype=torch.float64), seed=0,
+                 device=device)
+    want = _want(sub_matmul=2 * expected_launches(n))
+    _reset_launches(kernels)
+    w1, z1, cold = eigen_gev(a, b)
+    counts = [_take_launches(kernels)]
+    resident = _mem_mark(device)
+    w2, z2, warm = eigen_gev(a, b, profile=True)
+    peak = _mem_peak(device, resident)
+    counts.append(_take_launches(kernels))
+    warm.stage_report(lambda line: print("gev stage" + line, flush=True))
+    same = bool(torch.equal(w1, w2) and torch.equal(z1, z2))
+    del w1, z1
+    res = gev_residual_check(a, b, z2, w2)
+    orth = b_orthogonality_check(z2, b)
+    print(f"gev: Frank / designed n={n} f64 eigen_gev cold "
+          f"{cold.elapsed:.4f} s, warm {warm.elapsed:.4f} s = "
+          f"{warm.gflops:.2f} GFLOP/s (gev_flop_model {warm.flops:.6g}); "
+          f"peak device memory above the resident {resident} bytes: {peak} "
+          f"bytes; launches {counts} (expected {want}); cold and warm "
+          f"bitwise equal: {same}; checks: {res} {orth}", flush=True)
+    if not (res.passed and orth.passed and same and counts == [want] * 2):
+        raise AssertionError("gev mode A failed")
+    del z2
+    want_n = _want(sub_matmul=expected_launches(n) + _full_panels(n, NB_F),
+                   sturm_bisect=1)
+    _reset_launches(kernels)
+    w_n, z_n, info_n = eigen_gev(a, b, mode="N")
+    counts_n = _take_launches(kernels)
+    wa = eigenvalue_check(w_n, w2)
+    print(f"gev N: n={n} f64 {info_n.elapsed:.4f} s; launches "
+          f"{json.dumps(counts_n)} (expected {json.dumps(want_n)}); against "
+          f"mode A's w {wa}", flush=True)
+    if z_n is not None or not (wa.passed or wa.caution) or counts_n != want_n:
+        raise AssertionError("gev mode N failed")
+    del a, b, w2, w_n
+    _empty_cache(device)
+    return counts[0], counts_n
+
+
 def _solve_with(device, a, impl: str, mode: str) -> dict:
     """One profiled eigen_s with the reduction forced to `impl`: seconds,
     the TRD-BLK stage, and the peak device memory above what was resident
@@ -1253,12 +1543,14 @@ def trd_profile(device, n: int) -> None:
         householder.TRD_IMPL = old
 
 
-def _kernels_line(rows, launches) -> dict:
+def _kernels_line(rows, launches, complex_launches) -> dict:
     """One entry per kernel at its shape on the f32 windowed path, with an
     ``f64`` object of the same kernel at its shape on the f64 windowed
-    path; ``sturm_bisect`` (f64 only) at its band-1 bisection of n = 8192,
-    its plain time at n = 1024, with a ``band2`` object of the band-2
-    bisection."""
+    path, and for ``sub_matmul`` ``c64`` and ``c128`` objects at the
+    Hermitian path's first rolled panel with their launches in one eigen_h
+    solve (`complex_launches`); ``sturm_bisect`` (f64 only) at its band-1
+    bisection of n = 8192, its plain time at n = 1024, with a ``band2``
+    object of the band-2 bisection."""
     main_case = {"sub_matmul": ("wy_windowed_path", "wy"),
                  "symv_lower": ("fused_first_column",
                                 "fused_f64_path_first_column"),
@@ -1277,10 +1569,17 @@ def _kernels_line(rows, launches) -> dict:
                            and r["case"] == case and r["dtype"] == dtype)
                       for case, dtype in zip(main_case[name],
                                              ("float32", "float64")))
-        out.append({"name": name, "route": "cuda", **meta,
-                    "launches": launches[name],
-                    **{k: row[k] for k in keys},
-                    "f64": {k: row64[k] for k in f64_keys}})
+        entry = {"name": name, "route": "cuda", **meta,
+                 "launches": launches[name], **{k: row[k] for k in keys},
+                 "f64": {k: row64[k] for k in f64_keys}}
+        if name == "sub_matmul":
+            for short, dtype in (("c64", "complex64"),
+                                 ("c128", "complex128")):
+                crow = next(r for r in rows if r["name"] == name
+                            and r["case"] == "rank2k" and r["dtype"] == dtype)
+                entry[short] = {"launches": complex_launches[short],
+                                **{k: crow[k] for k in keys}}
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -1337,6 +1636,8 @@ def main() -> int:
     names = set(sys.argv[2:] if only_kernels else ()) or set(KERNELS)
     phases = (("sub_matmul", "sub_matmul", kernel_phase, (N_SLICE, True)),
               ("same_bits", "sub_matmul", same_bits_phase, ()),
+              ("sub_matmul complex", "sub_matmul", complex_kernel_phase,
+               (N_SLICE, True)),
               ("symv_lower", "symv_lower", symv_phase, (N_WINDOWED, True)),
               ("rank2k_update_window", "rank2k_update_window",
                rank2k_window_phase, (N_WINDOWED, True)),
@@ -1358,10 +1659,13 @@ def main() -> int:
           f"n={N_WINDOWED} {windowed_peak} bytes", flush=True)
     sx_rolled, sx_windowed = _timed_phase("sx", sx_phase, device)
     modes = _timed_phase("modes", modes_phase, device)
+    herm64, herm128 = _timed_phase("hermitian", hermitian_phase, device)
+    gev, gev_n = _timed_phase("gev", gev_phase, device)
     paths = (("rolled", rolled), ("windowed", windowed),
              ("f64 rolled", rolled64), ("f64 windowed", windowed64),
              ("sx rolled", sx_rolled), ("sx windowed", sx_windowed),
-             ("modes N and X", modes))
+             ("modes N and X", modes), ("hermitian c64", herm64),
+             ("hermitian c128", herm128), ("gev", gev), ("gev N", gev_n))
     for path, counts in paths:
         print(f"launches on the {path} path: {json.dumps(counts)}",
               flush=True)
@@ -1369,11 +1673,13 @@ def main() -> int:
     if not (all(counts["sub_matmul"] > 0 for _, counts in paths)
             and all(path[name] > 0 for name in matmul
                     for path in (windowed, windowed64, sx_windowed))
-            and modes["sturm_bisect"] > 0):
+            and modes["sturm_bisect"] > 0 and gev_n["sturm_bisect"] > 0):
         raise AssertionError("a kernel of a main path was never launched")
 
     print(json.dumps(_kernels_line(rows, {**windowed, "sturm_bisect":
-                                          modes["sturm_bisect"]})))
+                                          modes["sturm_bisect"]},
+                                   {"c64": herm64["sub_matmul"],
+                                    "c128": herm128["sub_matmul"]})))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// OUT = B - P * Q^T with the subtract fused into the product: one pass over B.
+// OUT = B - P * Q^T with the subtract fused into the product: one pass over B
+// (OUT = B - P * Q^H for the complex entry points).
 //
 // Replaces two Pallas TPU kernels of eigenexa_tpu/ops/pallas_kernels.py:
 //   * `_sub_matmul_pallas` (body `_sub_matmul_kernel`, public `sub_matmul`),
@@ -112,11 +113,27 @@
 // padded layout of the slices and an L2 prefetch of B's tile at the block's
 // start were each as slow or slower.
 //
+// The complex entry points (eigenexa_sub_matmul_c64, _c128) serve the
+// Hermitian driver eigen_h: its rolled reduction's rank-2k updates and its
+// back-transform blocks, k = 128, in place.  On the TPU complex never reached
+// Pallas (`_shape_eligible` sent it to `b - p @ conj(q).T`); here it has two
+// kernels of its own, below, each a simple tiled kernel: `sub_matmul_kernel_
+// c64` on the FP32 FMA pipes and `sub_matmul_kernel_c128` on DMMA.  A complex
+// multiply-add is 8 real operations, so at k = 128 both are bound by
+// operations: 8128^2 x 128 takes 1.01 ms at 67 TFLOP/s, against 0.32 ms
+// (c64) and 0.63 ms (c128) of bytes; the c128 kernel's FP64 work outside the
+// tensor cores would take 2.0 ms.  Their sums are the real fma chains the
+// block comment above them spells out, in one order: no split of k, no
+// atomics.  Measured there (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W):
+// c64 1.79 ms and c128 2.75 ms of device time, against 1.38 and 1.94 ms for
+// torch.addmm(b, p, q.conj().T, alpha=-1); what they lack is in ROADMAP B3.
+//
 // As built (nvcc -O3 for sm_90a; `python3 chip_smoke.py --kernels` prints
 // ptxas's figures): the 128-tile kernel takes 126 registers a thread, 0 bytes
 // of spill and 33,792 bytes of static shared memory a block; the 64-tile
 // kernel 40 registers and 8,320 bytes; the DMMA kernel 128 registers and
-// 24,576 bytes; none spills.
+// 24,576 bytes; the c64 kernel 64 registers and 8,320 bytes; the c128
+// kernel 122 registers and 16,384 bytes; none spills.
 //
 // Later work, not here: asynchronous staging (cp.async or TMA) of P and Q in
 // a ring of three or more slices, and of B's tile into shared memory at the
@@ -579,6 +596,231 @@ sub_matmul_kernel_f64_dmma(int m, int n, int k,
 }
 
 // ---------------------------------------------------------------------------
+// complex: OUT = B - P * Q^H, c64 and c128
+// ---------------------------------------------------------------------------
+//
+// A complex value is its interleaved (re, im) storage read as one float2 or
+// double2, and the conjugate of Q is taken where a Q value is loaded,
+// C = conj(Q) = (qr, -qi), never as a copy.  Each output is then two real
+// chains of fma over the 2k real terms of its row, in ascending order:
+//   re: + pr * cr, - pi * ci    (= pr * qr + pi * qi)
+//   im: + pi * cr, + pr * ci    (= pi * qr - pr * qi)
+// the real products [Pr -Pi] . [Cr Ci]^T and [Pi Pr] . [Cr Ci]^T of depth 2k,
+// which share the conjugated Q tile.  A negated factor is exact, so these are
+// the bits of the same chains written over Q itself.
+
+template <typename V>
+__device__ __forceinline__ V conj_value(V v) {
+  v.y = -v.y;
+  return v;
+}
+
+// base[row * ld + col], zero for a row >= rows or a column >= cols.
+template <typename V>
+__device__ __forceinline__ V load_value(const V* __restrict__ base,
+                                        long long ld, int row, int rows,
+                                        int col, int cols) {
+  if (row < rows && col < cols) return base[row * ld + col];
+  V zero;
+  zero.x = 0;
+  zero.y = 0;
+  return zero;
+}
+
+// c64: the 64-tile kernel's layout on complex values.  A 64 x 64 tile a
+// block, 256 threads, a 4 x 4 micro-tile of complex outputs each (32 float
+// accumulators), complex K-slices of 8 staged in shared memory.  A k step
+// reads 8 float2 from shared memory for 64 FMAs.
+constexpr int kCTile = 64;               // complex outputs along a tile edge
+constexpr int kCSlice = 8;               // complex K-slice
+constexpr int kCMicro = kCTile / kSide;  // 4 x 4 outputs a thread
+
+__global__ void __launch_bounds__(kThreads)
+sub_matmul_kernel_c64(int m, int n, int k,
+                      const float2* b, long long ldb,
+                      const float2* __restrict__ p, long long ldp,
+                      const float2* __restrict__ q, long long ldq,
+                      float2* out, long long ldo) {
+  // ps[l][r] = P[row0 + r, k0 + l];  cs[l][c] = conj(Q[col0 + c, k0 + l])
+  __shared__ float2 ps[kCSlice][kCTile + 1];
+  __shared__ float2 cs[kCSlice][kCTile + 1];
+
+  const int tx = threadIdx.x % kSide;
+  const int ty = threadIdx.x / kSide;
+  const int row0 = blockIdx.y * kCTile;
+  const int col0 = blockIdx.x * kCTile;
+
+  float re[kCMicro][kCMicro], im[kCMicro][kCMicro];
+#pragma unroll
+  for (int i = 0; i < kCMicro; ++i)
+#pragma unroll
+    for (int j = 0; j < kCMicro; ++j) re[i][j] = im[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < k; k0 += kCSlice) {
+    for (int e = threadIdx.x; e < kCTile * kCSlice; e += kThreads) {
+      const int r = e / kCSlice;
+      const int l = e % kCSlice;
+      ps[l][r] = load_value(p, ldp, row0 + r, m, k0 + l, k);
+      cs[l][r] = conj_value(load_value(q, ldq, col0 + r, n, k0 + l, k));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int l = 0; l < kCSlice; ++l) {
+      float2 a[kCMicro], c[kCMicro];
+#pragma unroll
+      for (int i = 0; i < kCMicro; ++i) a[i] = ps[l][ty + kSide * i];
+#pragma unroll
+      for (int j = 0; j < kCMicro; ++j) c[j] = cs[l][tx + kSide * j];
+#pragma unroll
+      for (int i = 0; i < kCMicro; ++i)
+#pragma unroll
+        for (int j = 0; j < kCMicro; ++j) {
+          re[i][j] = fmaf(a[i].x, c[j].x, re[i][j]);
+          re[i][j] = fmaf(-a[i].y, c[j].y, re[i][j]);
+          im[i][j] = fmaf(a[i].y, c[j].x, im[i][j]);
+          im[i][j] = fmaf(a[i].x, c[j].y, im[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < kCMicro; ++i) {
+    const int gr = row0 + ty + kSide * i;
+    if (gr >= m) continue;
+#pragma unroll
+    for (int j = 0; j < kCMicro; ++j) {
+      const int gc = col0 + tx + kSide * j;
+      if (gc < n) {
+        const float2 bv = b[gr * ldb + gc];
+        out[gr * ldo + gc] = make_float2(bv.x - re[i][j], bv.y - im[i][j]);
+      }
+    }
+  }
+}
+
+// c128 on the FP64 tensor cores: a 64 x 64 tile of complex outputs a block,
+// 8 warps in 4 x 2, each warp 16 x 32 outputs as 2 x 4 DMMA fragments of
+// 8 x 8 with a real and an imaginary accumulator (32 doubles a thread, as the
+// f64 kernel).  A DMMA k step of 4 real terms is two complex k: lane
+// g * 4 + t takes complex k t / 2 of its step, its real part for even t and
+// its imaginary part for odd t, so the A operand of the real accumulator is
+// (pr, -pi, ...) and that of the imaginary one (pi, pr, ...) against the
+// same B operand (cr, ci, ...) of the conjugated Q.  Complex K-slices of 4
+// (two k steps) are double-buffered through registers, one value of P and
+// one of Q a thread.
+constexpr int kZTile = 64;                       // complex outputs a tile edge
+constexpr int kZSlice = 4;                       // complex K-slice: 2 k steps
+constexpr int kZWarpsM = 4;                      // warps along the rows
+constexpr int kZWarpsN = kThreads / 32 / kZWarpsM;
+constexpr int kZFragM = kZTile / kZWarpsM / 8;   // 8 x 8 fragments of a warp
+constexpr int kZFragN = kZTile / kZWarpsN / 8;
+static_assert(kZTile * kZSlice == kThreads, "one staged value a thread");
+static_assert(kZFragM * 8 * kZWarpsM == kZTile &&
+              kZFragN * 8 * kZWarpsN == kZTile, "whole fragments");
+
+__global__ void __launch_bounds__(kThreads, kDBlocksPerSm)
+sub_matmul_kernel_c128(int m, int n, int k,
+                       const double2* b, long long ldb,
+                       const double2* __restrict__ p, long long ldp,
+                       const double2* __restrict__ q, long long ldq,
+                       double2* out, long long ldo) {
+  // ps[buf][r][l] = P[row0 + r, k0 + l];  cs[buf][c][l] = conj(Q[col0 + c,
+  // k0 + l]): a row of a slice is 64 contiguous bytes
+  __shared__ __align__(16) double2 ps[2][kZTile][kZSlice];
+  __shared__ __align__(16) double2 cs[2][kZTile][kZSlice];
+
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int g = lane / 4;          // fragment row of A and D, column of B
+  const int tk = lane % 4;         // real k of a step; D's pair
+  const int half = tk / 2;         // the complex k of the step it belongs to
+  const bool odd = tk % 2 != 0;    // its imaginary part
+  const int wr = (warp / kZWarpsN) * kZFragM * 8;  // the warp's rows
+  const int wc = (warp % kZWarpsN) * kZFragN * 8;  // and columns in the tile
+  const int row0 = blockIdx.y * kZTile;
+  const int col0 = blockIdx.x * kZTile;
+  // staging: this thread brings value sl of row sr of each slice's P and Q
+  const int sr = t / kZSlice;
+  const int sl = t % kZSlice;
+
+  // re[i][j], im[i][j] = D[g][2tk], D[g][2tk + 1] of fragment (i, j): rows
+  // wr + 8i + g, columns wc + 8j + 2tk, + 1
+  double re[kZFragM][kZFragN][2], im[kZFragM][kZFragN][2];
+#pragma unroll
+  for (int i = 0; i < kZFragM; ++i)
+#pragma unroll
+    for (int j = 0; j < kZFragN; ++j)
+      re[i][j][0] = re[i][j][1] = im[i][j][0] = im[i][j][1] = 0.0;
+
+  const int slices = (k + kZSlice - 1) / kZSlice;
+  if (slices > 0) {
+    ps[0][sr][sl] = load_value(p, ldp, row0 + sr, m, sl, k);
+    cs[0][sr][sl] = conj_value(load_value(q, ldq, col0 + sr, n, sl, k));
+  }
+  __syncthreads();
+
+  for (int s = 0; s < slices; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < slices;
+    double2 pnext, cnext;
+    if (more) {
+      const int kk = (s + 1) * kZSlice + sl;
+      pnext = load_value(p, ldp, row0 + sr, m, kk, k);
+      cnext = conj_value(load_value(q, ldq, col0 + sr, n, kk, k));
+    }
+    // the slice's two k steps in ascending order
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double ar[kZFragM], ai[kZFragM], c[kZFragN];
+#pragma unroll
+      for (int i = 0; i < kZFragM; ++i) {
+        const double2 v = ps[cur][wr + i * 8 + g][2 * h + half];
+        ar[i] = odd ? -v.y : v.x;
+        ai[i] = odd ? v.x : v.y;
+      }
+#pragma unroll
+      for (int j = 0; j < kZFragN; ++j) {
+        const double2 v = cs[cur][wc + j * 8 + g][2 * h + half];
+        c[j] = odd ? v.y : v.x;
+      }
+#pragma unroll
+      for (int i = 0; i < kZFragM; ++i)
+#pragma unroll
+        for (int j = 0; j < kZFragN; ++j) dmma_m8n8k4(re[i][j], ar[i], c[j]);
+#pragma unroll
+      for (int i = 0; i < kZFragM; ++i)
+#pragma unroll
+        for (int j = 0; j < kZFragN; ++j) dmma_m8n8k4(im[i][j], ai[i], c[j]);
+    }
+    if (more) {
+      ps[cur ^ 1][sr][sl] = pnext;
+      cs[cur ^ 1][sr][sl] = cnext;
+    }
+    __syncthreads();
+  }
+
+  // each output is read from B and written by the same lane: OUT may be B
+#pragma unroll
+  for (int i = 0; i < kZFragM; ++i) {
+    const int gr = row0 + wr + i * 8 + g;
+    if (gr >= m) continue;
+#pragma unroll
+    for (int j = 0; j < kZFragN; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gc = col0 + wc + j * 8 + 2 * tk + e;
+        if (gc < n) {
+          const double2 bv = b[gr * ldb + gc];
+          out[gr * ldo + gc] =
+              make_double2(bv.x - re[i][j][e], bv.y - im[i][j][e]);
+        }
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The launch rule
 // ---------------------------------------------------------------------------
 
@@ -628,6 +870,26 @@ int launch(int m, int n, int k, const double* b, long long ldb,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch(int m, int n, int k, const float2* b, long long ldb,
+           const float2* p, long long ldp, const float2* q, long long ldq,
+           float2* out, long long ldo, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + kCTile - 1) / kCTile, (m + kCTile - 1) / kCTile);
+  sub_matmul_kernel_c64<<<grid, kThreads, 0, s>>>(
+      m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(int m, int n, int k, const double2* b, long long ldb,
+           const double2* p, long long ldp, const double2* q, long long ldq,
+           double2* out, long long ldo, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + kZTile - 1) / kZTile, (m + kZTile - 1) / kZTile);
+  sub_matmul_kernel_c128<<<grid, kThreads, 0, s>>>(
+      m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  They launch on `stream`, which must
@@ -647,6 +909,24 @@ extern "C" int eigenexa_sub_matmul_f64(int m, int n, int k, const double* b,
                                        long long ldp, const double* q,
                                        long long ldq, double* out,
                                        long long ldo, void* stream) {
+  return launch(m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream);
+}
+
+// Complex entry points: OUT = B - P * Q^H on interleaved (re, im) storage,
+// leading dimensions in complex elements.
+extern "C" int eigenexa_sub_matmul_c64(int m, int n, int k, const float2* b,
+                                       long long ldb, const float2* p,
+                                       long long ldp, const float2* q,
+                                       long long ldq, float2* out,
+                                       long long ldo, void* stream) {
+  return launch(m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream);
+}
+
+extern "C" int eigenexa_sub_matmul_c128(int m, int n, int k, const double2* b,
+                                        long long ldb, const double2* p,
+                                        long long ldp, const double2* q,
+                                        long long ldq, double2* out,
+                                        long long ldo, void* stream) {
   return launch(m, n, k, b, ldb, p, ldp, q, ldq, out, ldo, stream);
 }
 

@@ -46,9 +46,11 @@ _ARGTYPES = {
     # (n, band, s0, s1, s2, head, a0, b0, w0, n_iter, w, stream)
     "eigenexa_sturm_bisect": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
 }
-# the dtypes each entry point is built for (the suffix of its name): both,
-# but the Sturm recurrence, which is f64 only
-_SUFFIXES = {"eigenexa_sturm_bisect": ("_f64",)}
+# the dtypes each entry point is built for (the suffix of its name): f32 and
+# f64, but the Sturm recurrence, which is f64 only, and the whole-matrix
+# subtract-product, which also takes c64 and c128 (the Hermitian path)
+_SUFFIXES = {"eigenexa_sturm_bisect": ("_f64",),
+             "eigenexa_sub_matmul": ("_f32", "_f64", "_c64", "_c128")}
 
 
 def entry_points():

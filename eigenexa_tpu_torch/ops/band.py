@@ -31,8 +31,8 @@ eigen_common_trbakwy handles MBAND 1 or 2, src/trbakwy4.F:77).
 
 The JAX package's scan bucketing, per-group jit and donation plumbing are
 TPU compile workarounds and are not ported: the panels run eagerly on
-shrinking views.  Real symmetric input only (the Hermitian path is ROADMAP
-A13).
+shrinking views.  Real symmetric input only: the Hermitian driver,
+``eigen_h``, takes the tridiagonal reduction.
 """
 
 from __future__ import annotations
@@ -281,8 +281,8 @@ def band2_reduce(a: torch.Tensor, nb: int = 64, impl: str = "auto",
     that is "auto" too, is rolled.  With ``donate=True`` ``a`` is the
     working matrix and is destroyed; the windowed path returns it as v."""
     if a.is_complex():
-        raise NotImplementedError("band2_reduce: Hermitian input is "
-                                  "ROADMAP A13")
+        raise NotImplementedError("band2_reduce: real symmetric input "
+                                  "only; eigen_h solves Hermitian input")
     nb += nb % 2
     if impl == "auto":
         impl = hh.TRD_IMPL

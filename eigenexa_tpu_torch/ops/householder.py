@@ -1,5 +1,5 @@
 """Blocked Householder tridiagonalization and compact-WY helpers (real
-symmetric).
+symmetric and complex Hermitian).
 
 Counterpart of ``eigenexa_tpu/ops/householder.py``.  Two implementations
 of the reference's panel loop (src/eigen_trd.F:349), both a Python loop over
@@ -29,7 +29,11 @@ and corrects each column with the in-panel U and W; the in-place update
 therefore runs strictly after the panel's last column (one stream, so call
 order is enough).
 
-Real symmetric input only: the Hermitian path is ROADMAP A13.
+One code path serves real and complex input on the rolled reduction, as in
+the JAX package: reflectors follow zlarfg (β real), so a Hermitian matrix
+reduces to a real tridiagonal T, and the conjugates sit where the formulas
+need them (for a real tensor ``conj`` is the tensor itself).  The windowed
+reduction is real only, as the JAX package's is.
 """
 
 from __future__ import annotations
@@ -61,21 +65,25 @@ class TridiagResult(NamedTuple):
 
 
 def householder_vector(x: torch.Tensor, p: int):
-    """dlarfg analogue: the reflector (v, tau, beta) that maps x[p:] onto
-    beta·e_p, annihilating x[p+1:] below the pivot alpha = x[p].
+    """dlarfg/zlarfg analogue: the reflector (v, tau, beta) that maps x[p:]
+    onto beta·e_p, annihilating x[p+1:] below the pivot alpha = x[p].
 
     The JAX function takes the mask ``idx > j``; here the pivot is the
     Python int p = j + 1, so the tail is a slice instead of a mask.  Returns
     v (v[p] = 1, zero above p), tau (0 when there is nothing to do) and
-    beta, the resulting sub-diagonal value.  The tail is pre-scaled by its
-    max-abs before the norm (dlarfg's rescaling), so ‖x‖² cannot overflow
-    or underflow in f32.
+    beta, the resulting sub-diagonal value, which is real: for complex x
+    the zlarfg convention rotates the pivot's phase into the reflector, and
+    the reflector is active when the tail is nonzero or alpha is not real
+    (so an empty tail still yields the phase rotation of the last
+    sub-diagonal).  The tail is pre-scaled by its max-abs before the norm
+    (dlarfg's rescaling), so ‖x‖² cannot overflow or underflow in f32.
     """
     m = x.shape[0]
     v = torch.zeros_like(x)
     zero = x.new_zeros(())
+    rzero = x.real.new_zeros(())
     if p >= m:
-        return v, zero, zero
+        return v, zero, rzero
     alpha = x[p]
     tail = x[p + 1:]
     tiny = torch.finfo(x.dtype).tiny
@@ -83,31 +91,37 @@ def householder_vector(x: torch.Tensor, p: int):
         scale = torch.clamp_min(tail.abs().amax(), tiny)
         xnorm = torch.linalg.vector_norm(tail / scale) * scale
     else:
-        xnorm = zero
-    mag = torch.sqrt(alpha * alpha + xnorm * xnorm)
-    beta = torch.where(alpha >= 0, -mag, mag)
-    active = xnorm > 0
+        xnorm = rzero
+    if x.is_complex():
+        alphr, alphi = alpha.real, alpha.imag
+        mag = torch.sqrt(alphr * alphr + alphi * alphi + xnorm * xnorm)
+        active = (xnorm > 0) | (alphi != 0)
+    else:
+        alphr = alpha
+        mag = torch.sqrt(alpha * alpha + xnorm * xnorm)
+        active = xnorm > 0
+    beta = torch.where(alphr >= 0, -mag, mag)   # real, opposite sign of Re α
     one = torch.ones_like(beta)
     safe_beta = torch.where(active, beta, one)
     tau = torch.where(active, (safe_beta - alpha) / safe_beta, zero)
-    denom = torch.where(active, alpha - safe_beta, one)
+    denom = torch.where(active, alpha - safe_beta, one.to(x.dtype))
     v[p + 1:] = tail / denom
     v[p] = active.to(x.dtype)
-    return v, tau, torch.where(active, beta, alpha)
+    return v, tau, torch.where(active, beta, alphr)
 
 
 def _panel_body(j: int, b, u_p, w_p, tau_p, e_p):
     """One column of the [dz]latrd-style panel recurrence, in place on the
     panel buffers.  b is the (frozen) trailing block at panel start."""
     # the column as updated by the previous in-panel rank-2 updates:
-    # A_cur[:, j] = B[:, j] − U·W[j] − W·U[j]
-    col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
+    # A_cur[:, j] = B[:, j] − U·conj(W[j]) − W·conj(U[j])
+    col = b[:, j] - u_p @ w_p[j].conj() - w_p @ u_p[j].conj()
     v, tau, beta = householder_vector(col, j + 1)
     # q = A_cur·v (reference: eigen_trd_au, src/eigen_trd_t2.F:161)
-    q = b @ v - u_p @ (w_p.T @ v) - w_p @ (u_p.T @ v)
-    # w = tau·q − (tau²/2)·(vᵀq)·v so that H·A·H = A − v·wᵀ − w·vᵀ
+    q = b @ v - u_p @ (w_p.conj().T @ v) - w_p @ (u_p.conj().T @ v)
+    # w = tau·q − (|tau|²/2)·(vᴴq)·v so that Hᴴ·A·H = A − v·wᴴ − w·vᴴ
     # (reference: eigen_trd_compute_v, src/eigen_trd_t6_3.F:85)
-    w = tau * q - (tau * tau * 0.5) * torch.dot(v, q) * v
+    w = tau * q - (tau * tau.conj() * 0.5) * torch.vdot(v, q) * v
     u_p[:, j] = v
     w_p[:, j] = w
     tau_p[j] = tau
@@ -118,29 +132,31 @@ def tridiag_panel(b: torch.Tensor, nb: int):
     """Factor ``nb`` columns of the trailing matrix ``b`` (m×m).
 
     Returns (u_panel, w_panel, tau, e): after this the trailing update is
-    b[nb:, nb:] -= U[nb:]·W[nb:]ᵀ + W[nb:]·U[nb:]ᵀ.
+    b[nb:, nb:] -= U[nb:]·W[nb:]ᴴ + W[nb:]·U[nb:]ᴴ.  e is real.
     """
     m = b.shape[0]
     u_p = b.new_zeros((m, nb))
     w_p = b.new_zeros((m, nb))
     tau_p = b.new_zeros((nb,))
-    e_p = b.new_zeros((nb,))
+    e_p = b.real.new_zeros((nb,))
     for j in range(nb):
         _panel_body(j, b, u_p, w_p, tau_p, e_p)
     return u_p, w_p, tau_p, e_p
 
 
 def _panel_diag(b, u_p, w_p, nb: int):
-    """Diagonal of the updated panel columns:
-    d_j = B[j,j] − 2·Σ_l U[j,l]·W[j,l]."""
-    return b.diagonal()[:nb] - 2.0 * (u_p[:nb] * w_p[:nb]).sum(dim=1)
+    """Real diagonal of the updated panel columns:
+    d_j = Re(B[j,j]) − 2·Σ_l Re(U[j,l]·conj(W[j,l]))."""
+    return (b.diagonal()[:nb].real
+            - 2.0 * (u_p[:nb] * w_p[:nb].conj()).real.sum(dim=1))
 
 
 def _tridiagonalize_rolled(work: torch.Tensor, nb: int) -> TridiagResult:
-    """Rolled reduction; ``work`` is the working matrix and is destroyed."""
+    """Rolled reduction; ``work`` is the working matrix and is destroyed.
+    d and e are real whatever ``work`` is; v and tau are in its dtype."""
     n = work.shape[0]
-    d = work.new_zeros((n,))
-    e = work.new_zeros((max(n - 1, 1),))
+    d = work.real.new_zeros((n,))
+    e = work.real.new_zeros((max(n - 1, 1),))
     v_full = work.new_zeros((n, n))
     tau_full = work.new_zeros((n,))
 
@@ -168,7 +184,7 @@ def _tridiagonalize_rolled(work: torch.Tensor, nb: int) -> TridiagResult:
         v_full[k:, k:] = u_p
         tau_full[k:] = tau_p
     elif m == 1:
-        d[k] = work[k, k]
+        d[k] = work[k, k].real
     return TridiagResult(d=d, e=e[:n - 1], v=v_full, tau=tau_full)
 
 
@@ -292,10 +308,14 @@ def _tridiagonalize_windowed(b: torch.Tensor, nb: int) -> TridiagResult:
 
 def tridiagonalize(a: torch.Tensor, nb: int = 64, impl: str = "auto",
                    donate: bool = False) -> TridiagResult:
-    """Reduce symmetric A (n×n) to tridiagonal T = Qᵀ·A·Q.
+    """Reduce symmetric or Hermitian A (n×n) to real tridiagonal
+    T = Qᴴ·A·Q.
 
-    Q = H_0·H_1·…·H_{n-3}; reflector k is stored in column k of the
-    returned v.  Reference: src/eigen_trd.F:82.  With ``donate=True``
+    Q = H_0·H_1·…·H_{n-2}; reflector k is stored in column k of the
+    returned v (for real A the last one is the identity; for Hermitian A it
+    is the phase rotation that makes the last sub-diagonal real).
+    Reference: src/eigen_trd.F:82 (real), src/eigen_hrd.F:1 (complex).
+    Complex A takes the rolled reduction only.  With ``donate=True``
     ``a`` is the working matrix and is destroyed (the solver passes its
     scaled temporary); otherwise it is copied first.
 
@@ -304,15 +324,16 @@ def tridiagonalize(a: torch.Tensor, nb: int = 64, impl: str = "auto",
     path returns its working matrix as v, so with ``donate=True`` it
     allocates no second n×n buffer.
     """
-    if a.is_complex():
-        raise NotImplementedError("tridiagonalize: Hermitian input is "
-                                  "ROADMAP A13")
     if impl == "auto":
         impl = TRD_IMPL
     if impl == "auto":
         impl = "rolled"
     if impl not in ("rolled", "windowed"):
         raise ValueError(f"tridiagonalize: unknown impl {impl!r}")
+    if impl == "windowed" and a.is_complex():
+        raise NotImplementedError(
+            "tridiagonalize: the windowed reduction is real only (a "
+            "Hermitian reduction is rolled, as in the JAX package)")
     work = a if donate else a.clone(memory_format=torch.contiguous_format)
     if impl == "windowed":
         return _tridiagonalize_windowed(work, nb)
@@ -324,10 +345,10 @@ def tridiagonalize(a: torch.Tensor, nb: int = 64, impl: str = "auto",
 # ---------------------------------------------------------------------------
 
 def wy_t_factor(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-    """Upper-triangular T with H_0·…·H_{b-1} = I − V·T·Vᵀ (dlarft analogue,
-    reference: src/trbakwy4_body.F), from the closed form
-    T⁻¹ = diag(1/τ) + strict_upper(VᵀV) and one triangular solve."""
-    return wy_t_from_gram(v.T @ v, tau)
+    """Upper-triangular T with H_0·…·H_{b-1} = I − V·T·Vᴴ (dlarft analogue,
+    reference: src/trbakwy4_body.F, src/hrbakwy4_body.F), from the closed
+    form T⁻¹ = diag(1/τ) + strict_upper(VᴴV) and one triangular solve."""
+    return wy_t_from_gram(v.conj().T @ v, tau)
 
 
 def wy_t_from_gram(g: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
@@ -342,7 +363,7 @@ def wy_t_from_gram(g: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
 
 
 def apply_wy_left(z: torch.Tensor, v: torch.Tensor, t: torch.Tensor):
-    """Z ← (I − V·T·Vᵀ)·Z in place — one WY block of the back-transform
+    """Z ← (I − V·T·Vᴴ)·Z in place — one WY block of the back-transform
     (reference: src/trbakwy4_body.F:573-625,721).  The large second
     product streams through the fused subtract-matmul kernel."""
     return wy_apply(z, v, t, out=z)

@@ -34,8 +34,14 @@ Dispatch is by device, never by a fallback:
   ``_symv_lower_ref``, ``_rank2k_window_ref``, ``_sturm_bisect_ref``); the
   parity tests and the CPU solver run it;
 * a CUDA tensor launches the kernel, or raises on what the kernel does not
-  take (complex, other dtypes, non-unit column stride, bad aliasing, more
-  than ``SYMV_MAX_NC`` vectors, a window that starts past the matrix).
+  take (other dtypes, complex but for ``sub_matmul``, non-unit column
+  stride, bad aliasing, more than ``SYMV_MAX_NC`` vectors, a window that
+  starts past the matrix).
+
+``sub_matmul`` takes f32, f64, c64 and c128 (``rank2k_update`` and
+``wy_apply`` with it: their formulas carry the conjugates).  The windowed
+kernels are real only, as the JAX package's windowed path is: a Hermitian
+reduction is always rolled.
 
 ``LAUNCHES`` counts wrapper calls that launched their kernel (the main
 path's proof that it ran through the kernels); a plain version never
@@ -55,7 +61,8 @@ WIN_TM = 512       # window granularity TM of the windowed reduction
 SYMV_MAX_NC = 8    # most vectors one symv_lower call takes
 _SYMV_TILE = 64    # tile rows of csrc/symv_lower.cu (sizes its scratch)
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
 F64 = torch.float64
 
 
@@ -79,11 +86,13 @@ def _ld(x: torch.Tensor, name: str, fn: str = "sub_matmul") -> int:
     return x.stride(0)
 
 
-def _check_kernel_dtype(fn: str, b: torch.Tensor) -> None:
+def _check_kernel_dtype(fn: str, b: torch.Tensor,
+                        complex_ok: bool = False) -> None:
     """What every kernel refuses on a tensor that is not on the CPU."""
-    if b.is_complex():
+    if b.is_complex() and not complex_ok:
         raise NotImplementedError(
-            f"{fn}: complex on CUDA is the Hermitian path (ROADMAP A13)")
+            f"{fn}: the windowed kernels are real only (a Hermitian "
+            "reduction is rolled, as in the JAX package)")
     if b.dtype not in _SUFFIX:
         raise TypeError(f"{fn}: no kernel for dtype {b.dtype}")
     if b.device.type != "cuda":
@@ -121,7 +130,8 @@ def _check(b, p, q, out):
 def sub_matmul(b, p, q, out=None):
     """``B − P·conj(Q)ᵀ`` with the subtract fused into the product.
 
-    B: (m, n); P: (m, k); Q: (n, k).  ``out`` may be B itself (the in-place
+    B: (m, n); P: (m, k); Q: (n, k); f32, f64, c64 or c128 (the kernel takes
+    Q's conjugate as it loads it).  ``out`` may be B itself (the in-place
     trailing update); otherwise a new (m, n) tensor is returned.
     """
     _check(b, p, q, out)
@@ -130,7 +140,7 @@ def sub_matmul(b, p, q, out=None):
         if out is None:
             return r
         return out.copy_(r)
-    _check_kernel_dtype("sub_matmul", b)
+    _check_kernel_dtype("sub_matmul", b, complex_ok=True)
     if out is None:
         out = torch.empty_like(b, memory_format=torch.contiguous_format)
     m, n = b.shape
@@ -141,6 +151,10 @@ def sub_matmul(b, p, q, out=None):
         raise ValueError("sub_matmul: out overlaps B without being B")
     if _same_storage(out, p) or _same_storage(out, q):
         raise ValueError("sub_matmul: out must not share storage with P or Q")
+    if any(x.is_conj() for x in (b, p, q, out)):
+        # the kernel reads the stored values: a lazy conjugate is not there
+        raise ValueError("sub_matmul: an operand carries a lazy conjugate; "
+                         "pass it through resolve_conj()")
     ldb, ldp, ldq, ldo = (_ld(b, "B"), _ld(p, "P"), _ld(q, "Q"),
                           _ld(out, "out"))
     fn = getattr(load_library(), "eigenexa_sub_matmul_" + _SUFFIX[b.dtype])

@@ -33,3 +33,9 @@ def solve_tridiag(d, e, leaf: int = 32, vec_dtype=None):
 
     Returns ascending (w float64, S in vec_dtype)."""
     return solve_tridiag_dc(d, e, leaf=leaf, vec_dtype=vec_dtype)
+
+
+def eigvals_tridiag_dense(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of T alone, ascending, from the dense eigvalsh of T in
+    d's dtype (the JAX package's ``eigen_h`` mode N)."""
+    return torch.linalg.eigvalsh(assemble_tridiag(d, e))

@@ -30,8 +30,8 @@ modes N and X runs on the card in ``csrc/sturm.cu``
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Optional, Tuple
@@ -47,6 +47,7 @@ from eigenexa_tpu_torch.runtime import (EigenContext, apply_precision,
 from eigenexa_tpu_torch.solvers import dc
 from eigenexa_tpu_torch.solvers.dc_band import solve_band2_dc
 from eigenexa_tpu_torch.solvers.trbak import back_transform
+from eigenexa_tpu_torch.utils import profiler
 from eigenexa_tpu_torch.utils.profiler import Profiler
 from eigenexa_tpu_torch.utils.stageio import load_stage_data
 from eigenexa_tpu_torch.utils.sync import device_sync
@@ -165,10 +166,7 @@ def _solve(a, nvec: int, mode: str, nb_f: int, nb_b: int,
     in_dtype = a.dtype
     dev = a.device
 
-    def stage(name, flops):
-        if prof is None:
-            return contextlib.nullcontext()
-        return prof.region(name, flops, dev)
+    stage = functools.partial(profiler.stage, prof, device=dev)
 
     with stage("TRD-BLK" if band == 1 else "PRD-BLK", 4.0 / 3.0 * n ** 3):
         a_s, sigma = matrix_scaling(a)
@@ -260,10 +258,7 @@ def _drive(a, nvec: Optional[int], mode: str, ctx: Optional[EigenContext],
                   cfg.panel_backward, prof, band)
     device_sync(w, z)
     elapsed = time.perf_counter() - t0
-    stages = {} if prof is None else {
-        name: {"seconds": prof.times[name],
-               "flops": prof.flops.get(name, 0.0)}
-        for name in prof.times}
+    stages = {} if prof is None else prof.stages()
     info = SolveInfo(flops=flop_model(n, nvec, mode in ("A", "X", "S")),
                      elapsed=elapsed, n=n, nvec=nvec, mode=mode,
                      stages=stages)

@@ -6,6 +6,12 @@ benchmark/ev_test.f:182-204, benchmark/w_test.f:141-175):
   orthogonality ‖ZᵀZ−I‖_F / (N·ε)         PASS < 8,   hard FAIL > 32
   eigenvalues   max rel & abs error        PASS < √ε,  CAUTION < ε^{1/4}
 
+and for the generalized problem (benchmark/KMATH_EIGEN_GEV_check.f), with
+the same constants:
+
+  gev_residual    ‖AZ−BZW‖_F / (N·ε·‖A‖_F)   PASS < 768, hard FAIL > 1024
+  b_orthogonality ‖ZᴴBZ−I‖_F / (N·ε)         PASS < 8,   hard FAIL > 32
+
 ε is the dtype's.  The products run in the dtype of the operands at full
 precision (``runtime.apply_precision`` keeps TF32 off).
 """
@@ -97,3 +103,30 @@ def eigenvalue_check_scaled(w, w_true, caution_factor: float = 768.0
     val = abs_err / (eps * max(anorm, 1e-300))
     return CheckResult("eigenvalues_scaled", val, val < caution_factor,
                        val > 1024.0)
+
+
+def gev_residual_check(a, b, z, w, nvec: Optional[int] = None
+                       ) -> CheckResult:
+    """‖AZ−BZW‖_F / (N·ε·‖A‖_F), the generalized-problem residual, with
+    PASS<768 / FAIL>1024."""
+    n = a.shape[0]
+    if nvec is not None:
+        z = z[:, :nvec]
+        w = w[:nvec]
+    eps = torch.finfo(a.dtype).eps
+    r = a @ z - (b @ z) * w[None, :].to(z.dtype)
+    val = float(torch.linalg.norm(r) / (n * eps * torch.linalg.norm(a)))
+    return CheckResult("gev_residual", val, val < 768.0, val > 1024.0)
+
+
+def b_orthogonality_check(z, b, nvec: Optional[int] = None) -> CheckResult:
+    """‖ZᴴBZ−I‖_F / (N·ε), the B-orthonormality of generalized
+    eigenvectors, with PASS<8 / FAIL>32."""
+    n = z.shape[0]
+    if nvec is not None:
+        z = z[:, :nvec]
+    eps = torch.finfo(z.dtype).eps
+    g = z.conj().T @ (b @ z)
+    g.diagonal().sub_(1.0)
+    val = float(torch.linalg.norm(g) / (n * eps))
+    return CheckResult("b_orthogonality", val, val < 8.0, val > 32.0)

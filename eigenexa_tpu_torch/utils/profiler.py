@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -50,3 +50,18 @@ class Profiler:
         self.times[name] = self.times.get(name, 0.0) + seconds
         if flops:
             self.flops[name] = self.flops.get(name, 0.0) + flops
+
+    def stages(self) -> dict:
+        """``SolveInfo.stages``: {name: {"seconds", "flops"}} per region, in
+        the order they were first timed."""
+        return {name: {"seconds": seconds, "flops": self.flops.get(name, 0.0)}
+                for name, seconds in self.times.items()}
+
+
+def stage(prof: Optional[Profiler], name: str, flops: float = 0.0,
+          device=None):
+    """``prof.region(name, flops, device)``, or a context that times
+    nothing when ``prof`` is None: an unprofiled solve never waits."""
+    if prof is None:
+        return contextlib.nullcontext()
+    return prof.region(name, flops, device)

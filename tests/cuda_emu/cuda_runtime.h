@@ -46,6 +46,8 @@ struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct alignas(16) double2 { double x, y; };
 inline double2 make_double2(double x, double y) { return {x, y}; }
 struct dim3 {

@@ -2,14 +2,17 @@
 // test) on CPU threads and holds every output bit for bit against the
 // contract: one chain of fma over k in ascending order from 0, then b - acc;
 // nothing outside the view or the window written.  The argument picks the
-// element type, f32 (the default) or f64.  Prints one line a case and
-// "ALL OK" or "FAIL"; exits non-zero on a failure.
+// element type, f32 (the default), f64, c64 or c128.  A complex output is
+// two real chains over l ascending, re over (pr * qr, pi * qi) and im over
+// (pi * qr, -pr * qi): B - P * Q^H with Q's conjugate.  Prints one line a
+// case and "ALL OK" or "FAIL"; exits non-zero on a failure.
 #include "kern.cpp"
 
 #include <cstdio>
 #include <cstring>
 #include <random>
 #include <string>
+#include <type_traits>
 
 static std::mt19937 rng(7);
 
@@ -136,9 +139,96 @@ static int f64_cases() {
   return f;
 }
 
+template <typename T>
+using Complex = std::conditional_t<sizeof(T) == 4, float2, double2>;
+
+template <typename T>
+static void fill(std::vector<Complex<T>>& v) {
+  std::normal_distribution<T> d;
+  for (auto& x : v) x = {d(rng), d(rng)};
+}
+
+// The complex entry point of T's width on the layouts of `run`, counted in
+// complex elements: B an (m, n) view with leading dimension ldb, `ob`
+// elements into its buffer; P and Q with leading dimension ldp, `op` in.
+template <typename T>
+static int run_complex(const char* name, int m, int n, int k, long long ldb,
+                       int ob, long long ldp, int op, bool inplace) {
+  using C = Complex<T>;
+  std::vector<C> bbuf(ob + size_t(m) * ldb + 8),
+      pbuf(op + size_t(m) * ldp + 8), qbuf(op + size_t(n) * ldp + 8),
+      obuf(size_t(m) * n + 8, C{T(-7), T(-7)});
+  fill<T>(bbuf);
+  fill<T>(pbuf);
+  fill<T>(qbuf);
+  C* B = bbuf.data() + ob;
+  const C* P = pbuf.data() + op;
+  const C* Q = qbuf.data() + op;
+  C* O = obuf.data();
+  const std::vector<C> before(bbuf);
+  std::vector<C> ref(size_t(m) * n);
+  for (int i = 0; i < m; ++i)
+    for (int j = 0; j < n; ++j) {
+      T re = 0, im = 0;
+      for (int l = 0; l < k; ++l) {
+        const C a = P[i * ldp + l], c = Q[j * ldp + l];
+        re = std::fma(a.x, c.x, re);
+        re = std::fma(a.y, c.y, re);
+        im = std::fma(a.y, c.x, im);
+        im = std::fma(-a.x, c.y, im);
+      }
+      const C bv = B[i * ldb + j];
+      ref[size_t(i) * n + j] = {bv.x - re, bv.y - im};
+    }
+  C* dst = inplace ? B : O;
+  const long long ldo = inplace ? ldb : n;
+  if constexpr (sizeof(T) == 4)
+    eigenexa_sub_matmul_c64(m, n, k, B, ldb, P, ldp, Q, ldp, dst, ldo,
+                            nullptr);
+  else
+    eigenexa_sub_matmul_c128(m, n, k, B, ldb, P, ldp, Q, ldp, dst, ldo,
+                             nullptr);
+  long bad = 0, outside = 0;
+  for (int i = 0; i < m; ++i)
+    for (int j = 0; j < n; ++j)
+      if (memcmp(&dst[i * ldo + j], &ref[size_t(i) * n + j], sizeof(C)))
+        ++bad;
+  for (size_t e = 0; e < bbuf.size(); ++e) {
+    const long long rel = static_cast<long long>(e) - ob;
+    const bool inside = inplace && rel >= 0 && rel / ldb < m && rel % ldb < n;
+    if (!inside && memcmp(&bbuf[e], &before[e], sizeof(C))) ++outside;
+  }
+  printf("%-16s %s m=%d n=%d k=%d ldb=%lld ob=%d ldp=%lld op=%d inplace=%d "
+         "wrong=%ld outside=%ld\n", name, sizeof(T) == 4 ? "c64" : "c128", m,
+         n, k, ldb, ob, ldp, op, inplace, bad, outside);
+  return bad || outside;
+}
+
+// Both complex kernels' edges: a tile exactly, ragged edges, the rolled
+// reduction's in-place strided view, an offset view with an odd leading
+// dimension, k = 0, 1, 5 (inside one slice of either kernel) and 130 (two
+// past a slice), P and Q one element into their buffers.
+template <typename T>
+static int complex_cases() {
+  int f = 0;
+  f |= run_complex<T>("aligned", 128, 64, 16, 64, 0, 16, 0, false);
+  f |= run_complex<T>("ragged", 150, 100, 21, 100, 0, 21, 0, false);
+  f |= run_complex<T>("inplace_view", 90, 90, 24, 120, 30 * 120 + 30, 24, 0,
+                      true);
+  f |= run_complex<T>("odd_ld_offset", 100, 70, 12, 83, 37, 13, 1, true);
+  f |= run_complex<T>("k0", 64, 64, 0, 64, 0, 4, 0, false);
+  f |= run_complex<T>("k1", 70, 65, 1, 65, 0, 1, 0, true);
+  f |= run_complex<T>("k5", 65, 70, 5, 71, 0, 5, 1, true);
+  f |= run_complex<T>("k130", 66, 67, 130, 67, 0, 131, 1, false);
+  return f;
+}
+
 int main(int argc, char** argv) {
-  const bool f64 = argc > 1 && std::string(argv[1]) == "f64";
-  const int f = f64 ? f64_cases() : f32_cases();
+  const std::string type = argc > 1 ? argv[1] : "f32";
+  const int f = type == "f64"    ? f64_cases()
+                : type == "c64"  ? complex_cases<float>()
+                : type == "c128" ? complex_cases<double>()
+                                 : f32_cases();
   printf(f ? "FAIL\n" : "ALL OK\n");
   return f;
 }

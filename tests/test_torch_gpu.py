@@ -8,10 +8,11 @@ repository's conftest imports JAX, so switch it off there:
 
 Kernel tolerance: max abs error ≤ c·(max|B| + k·max|P|·max|Q|), c = 1e-5
 in f32 and 1e-13 in f64 — the kernel and its plain version differ only in
-summation order.  For ``symv_lower`` the bound is c·√m·max|B|·max|X|: a sum
-of m products whose rounding grows like √m, far below the O(1) error of a
-tile dropped or counted twice; with a panel it adds c·2nb·max|P|·max|g|
-for the corrections' dots.
+summation order; in c64 and c128 the same c over the 2k real terms of a
+complex dot, with moduli.  For ``symv_lower`` the bound is
+c·√m·max|B|·max|X|: a sum of m products whose rounding grows like √m, far
+below the O(1) error of a tile dropped or counted twice; with a panel it
+adds c·2nb·max|P|·max|g| for the corrections' dots.
 """
 
 import numpy as np
@@ -25,8 +26,10 @@ from eigenexa_tpu_torch.testing import (frank, orthogonality_check,  # noqa: E40
                                         residual_check)
 
 pytestmark = pytest.mark.gpu
-ERR_C = {torch.float32: 1e-5, torch.float64: 1e-13}
+ERR_C = {torch.float32: 1e-5, torch.float64: 1e-13,
+         torch.complex64: 1e-5, torch.complex128: 1e-13}
 DTYPES = [torch.float32, torch.float64]
+CDTYPES = [torch.complex64, torch.complex128]
 
 
 @pytest.fixture
@@ -37,12 +40,16 @@ def cuda():
 
 
 def _randn(seed, *shape, dtype, device):
-    x = np.random.default_rng(seed).standard_normal(shape)
+    r = np.random.default_rng(seed)
+    x = r.standard_normal(shape)
+    if dtype.is_complex:
+        x = x + 1j * r.standard_normal(shape)
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 def _bound(b, p, q):
-    return ERR_C[b.dtype] * (float(b.abs().max()) + p.shape[1]
+    terms = p.shape[1] * (2 if b.is_complex() else 1)
+    return ERR_C[b.dtype] * (float(b.abs().max()) + terms
                              * float(p.abs().max() * q.abs().max()))
 
 
@@ -68,7 +75,7 @@ KERNEL_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES + CDTYPES)
 @pytest.mark.parametrize("case", list(KERNEL_CASES))
 def test_kernel_matches_plain(cuda, dtype, case):
     """A fresh output, or in place on a strided view with everything
@@ -111,7 +118,7 @@ def test_kernel_with_k_zero_writes_b(cuda, m, n):
     assert out.data_ptr() != b.data_ptr() and torch.equal(out, b)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES + CDTYPES)
 @pytest.mark.parametrize("m,n,k,ld", [(4224, 4224, 128, 4224),
                                       (4200, 4097, 100, 4201)])
 def test_large_call_and_row_blocks_give_the_same_bits(cuda, m, n, k, ld,
@@ -121,7 +128,7 @@ def test_large_call_and_row_blocks_give_the_same_bits(cuda, m, n, k, ld,
     for each SM) to the 64-tile kernel.  Both sum over k in one order with
     fma, so the results are bitwise equal, whichever kernel ran.  In f64
     both take the DMMA kernel, whose sums do not depend on where a tile
-    lies: bitwise equal too."""
+    lies: bitwise equal too; in c64 and c128 one kernel each, likewise."""
     b = _randn(1, m, ld, dtype=dtype, device=cuda)[:, :n]
     p, q = (_randn(s, r, k, dtype=dtype, device=cuda)
             for s, r in ((2, m), (3, n)))
@@ -140,9 +147,11 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     before = tk.LAUNCHES["sub_matmul"]
     b, p, q = (_randn(s, *sh, dtype=torch.float32, device=cuda)
                for s, sh in ((1, (64, 64)), (2, (64, 8)), (3, (64, 8))))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tk.sub_matmul(b.to(torch.complex64), p.to(torch.complex64),
-                      q.to(torch.complex64))
+    # complex launches (test_kernel_matches_plain); a lazy conjugate, which
+    # is not in the stored values the kernel reads, is refused
+    bc, pc, qc = (x.to(torch.complex64) for x in (b, p, q))
+    with pytest.raises(ValueError, match="lazy conjugate"):
+        tk.sub_matmul(bc, pc, qc.conj())
     with pytest.raises(TypeError):
         tk.sub_matmul(b.half(), p.half(), q.half())
     with pytest.raises(ValueError, match="column stride"):
@@ -293,7 +302,7 @@ def test_window_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     before = dict(tk.LAUNCHES)
     b = _randn(41, 600, 600, dtype=torch.float32, device=cuda)
     x = _randn(42, 600, 2, dtype=torch.float32, device=cuda)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="real only"):
         tk.symv_lower(b.to(torch.complex64), x.to(torch.complex64))
     with pytest.raises(TypeError):
         tk.symv_lower(b.half(), x.half())
@@ -307,7 +316,7 @@ def test_window_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         tk.symv_lower(b, x, t0=2)
     with pytest.raises(ValueError, match="different devices"):
         tk.symv_lower(b, x.cpu())
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="real only"):
         tk.rank2k_update_window(b.to(torch.complex64),
                                 x.to(torch.complex64),
                                 x.to(torch.complex64))
@@ -401,6 +410,82 @@ def test_eigen_s_on_the_card(cuda, dtype):
     wc, _, _ = ext.eigen_s(a.cpu(), ctx=ext.eigen_init("cpu"))
     tol = 1e-12 if dtype == torch.float64 else 1e-4
     assert float((w.cpu() - wc).abs().max()) < tol * float(wc.abs().max())
+    ext.eigen_free()
+
+
+@pytest.mark.parametrize("dtype", CDTYPES)
+def test_eigen_h_on_the_card(cuda, dtype):
+    """The phased Frank matrix at n = 300, c64 and c128: 4 TRD panels with a
+    trailing block and 3 WY blocks launch the complex kernel 7 times; the
+    solve passes the checks, repeats bitwise, and agrees with the CPU solve
+    (plain versions) to 1e-12·‖A‖ in c128 and 1e-4·‖A‖ in c64."""
+    from eigenexa_tpu_torch.testing import frank_hermitian
+
+    ctx = ext.eigen_init(cuda)
+    a = frank_hermitian(300, dtype, device=cuda)
+    before = tk.LAUNCHES["sub_matmul"]
+    w, z, _ = ext.eigen_h(a, ctx=ctx)
+    assert tk.LAUNCHES["sub_matmul"] == before + 7
+    assert z.device.type == "cuda" and z.dtype == dtype
+    assert residual_check(a, z, w).passed
+    assert orthogonality_check(z).passed
+    w2, z2, _ = ext.eigen_h(a, ctx=ctx)
+    assert torch.equal(w, w2) and torch.equal(z, z2)
+    wc, _, _ = ext.eigen_h(a.cpu(), ctx=ext.eigen_init("cpu"))
+    tol = 1e-12 if dtype == torch.complex128 else 1e-4
+    assert float((w.cpu() - wc).abs().max()) < tol * float(wc.abs().max())
+    ext.eigen_free()
+
+
+def test_eigen_h_modes_on_the_card(cuda):
+    """Modes N, X, T, S and C at c128 n = 200 on the card: the launches of
+    their stages (3 TRD panels, 2 WY blocks), values against mode A."""
+    from eigenexa_tpu_torch.testing import frank_hermitian
+
+    ctx = ext.eigen_init(cuda)
+    a = frank_hermitian(200, torch.complex128, device=cuda)
+    wa, za, _ = ext.eigen_h(a, ctx=ctx)
+    scale = float(wa.abs().max())
+    for mode, launches in (("N", 3), ("X", 5), ("T", 3), ("S", 5),
+                           ("C", 3)):
+        before = tk.LAUNCHES["sub_matmul"]
+        w, z, _ = ext.eigen_h(a, mode=mode, ctx=ctx)
+        assert tk.LAUNCHES["sub_matmul"] == before + launches, mode
+        if mode in "NXT":
+            assert float((w - wa).abs().max()) < 1e-12 * scale, mode
+        if mode == "X":
+            assert torch.equal(z, za)
+        if mode in "TS":
+            assert orthogonality_check(z).passed
+    ext.eigen_free()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_eigen_gev_on_the_card(cuda, dtype):
+    """A = Frank, B = designed(linspace(1, 2, n)) at n = 300: mode A runs
+    two rolled eigen_s solves (2 × 7 launches), passes the GEV checks,
+    repeats bitwise and agrees with the CPU; mode N launches sturm_bisect
+    once."""
+    from eigenexa_tpu_torch.testing import (b_orthogonality_check, designed,
+                                            gev_residual_check)
+
+    ctx = ext.eigen_init(cuda)
+    a = frank(300, dtype, cuda)
+    b = designed(torch.linspace(1.0, 2.0, 300), dtype=dtype, device=cuda)
+    before = dict(tk.LAUNCHES)
+    w, z, _ = ext.eigen_gev(a, b, ctx=ctx)
+    assert tk.LAUNCHES["sub_matmul"] == before["sub_matmul"] + 14
+    assert gev_residual_check(a, b, z, w).passed
+    assert b_orthogonality_check(z, b).passed
+    w2, z2, _ = ext.eigen_gev(a, b, ctx=ctx)
+    assert torch.equal(w, w2) and torch.equal(z, z2)
+    wc, _, _ = ext.eigen_gev(a.cpu(), b.cpu(), ctx=ext.eigen_init("cpu"))
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    assert float((w.cpu() - wc).abs().max()) < tol * float(wc.abs().max())
+    before = tk.LAUNCHES["sturm_bisect"]
+    wn, zn, _ = ext.eigen_gev(a, b, mode="N", ctx=ctx)
+    assert zn is None and tk.LAUNCHES["sturm_bisect"] == before + 1
+    assert float((wn - w).abs().max()) < tol * float(wc.abs().max())
     ext.eigen_free()
 
 

@@ -96,6 +96,32 @@ def test_sub_matmul_complex_conjugates_on_cpu():
     np.testing.assert_allclose(n_(out), b - p @ np.conj(q).T, rtol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("m,n,k", [(40, 33, 1), (17, 70, 5), (64, 48, 130)])
+def test_complex_sub_matmul_matches_jax(m, n, k, dtype):
+    """B − P·Qᴴ on c64/c128 against the JAX package's sub_matmul (its
+    complex path, ``b - p @ conj(q).T``): ragged shapes, k = 1, 5, 130,
+    and in place on a strided view of a larger matrix, as the rolled
+    Hermitian reduction calls it.  Tolerance: c64 1e-4 (sums of k ≤ 130
+    products of N(0,1) entries in another order), c128 as f64."""
+    r = rng(50 + k)
+    big, p, q = ((r.standard_normal(s) + 1j * r.standard_normal(s))
+                 .astype(dtype) for s in ((m + 7, n + 9), (m, k), (n, k)))
+    b = big[7:, 9:]
+    ref = n_(pk.sub_matmul(jnp.asarray(b), jnp.asarray(p), jnp.asarray(q),
+                           interpret=True))
+    tol = 1e-4 if dtype == np.complex64 else None
+    _assert_close(tk.sub_matmul(t(b), t(p), t(q)), ref,
+                  np.float32 if tol else np.float64)
+    tb = t(big)
+    view = tb[7:, 9:]
+    out = tk.sub_matmul(view, t(p), t(q), out=view)
+    assert out.data_ptr() == view.data_ptr()
+    _assert_close(view, ref, np.float32 if tol else np.float64)
+    np.testing.assert_array_equal(n_(tb)[:7], big[:7])
+    np.testing.assert_array_equal(n_(tb)[:, :9], big[:, :9])
+
+
 def test_cpu_tensors_never_count_launches():
     before = dict(tk.LAUNCHES)
     b, p, q = t(_randn(1, 64, 64)), t(_randn(2, 64, 8)), t(_randn(3, 64, 8))
@@ -152,10 +178,12 @@ def test_build_table_binds_every_entry_point():
                 r'extern "C" int (\w+)\(([^)]*)\)', _c_code(csrc / src)):
             found[name] = [" ".join(p.split()) for p in params.split(",")]
     bound = dict(_build.entry_points())
-    # f32 and f64 of the three matmul and matvec entry points; the Sturm
-    # recurrence is f64 only
-    assert set(found) == set(bound) and len(found) == 7
+    # f32 and f64 of the three matmul and matvec entry points, c64 and c128
+    # of the whole-matrix subtract-product; the Sturm recurrence is f64 only
+    assert set(found) == set(bound) and len(found) == 9
     assert "eigenexa_sturm_bisect_f64" in found
+    assert {"eigenexa_sub_matmul_c64", "eigenexa_sub_matmul_c128"} <= set(
+        found)
     for name, params in found.items():
         assert len(params) == len(bound[name]), name
         for param, ctype in zip(params, bound[name]):
@@ -273,11 +301,18 @@ def test_sub_matmul_source_keeps_the_full_precision_contract(word):
         assert "mma" not in body, kernel
 
 
+# edits of csrc/sub_matmul.cu that the emulated complex kernels must catch:
+# the conjugate of Q dropped where it is loaded
+SUB_MATMUL_MUTANTS = {"conj_dropped": ("v.y = -v.y;", "")}
+
+
 @pytest.fixture(scope="module")
-def emu_binary(tmp_path_factory):
+def emu_binaries(tmp_path_factory):
     """csrc/sub_matmul.cu built by the host compiler against the stand-in
     runtime of tests/cuda_emu: the launches and the inline PTX rewritten
-    into the stand-in's calls, with sub_matmul_main.cpp as its main."""
+    into the stand-in's calls, with sub_matmul_main.cpp as its main; the
+    source as it is and each mutant of SUB_MATMUL_MUTANTS, compiled at
+    once."""
     import re
     import shutil
 
@@ -288,26 +323,53 @@ def emu_binary(tmp_path_factory):
     src, count = re.subn(
         r"(sub_matmul_kernel\w*)<<<(\w+), kThreads, 0,\s*s>>>\(\s*",
         r"emu_launch(\1, \2, kThreads, ", src)
-    assert count == 3                      # one launch for each kernel
+    assert count == 5                      # one launch for each kernel
     src, count = re.subn(
         r'asm volatile\("mma.*?:\s*"\+d"\((.+?)\),\s*"\+d"\((.+?)\)'
         r'\s*:\s*"d"\((.+?)\),\s*"d"\((.+?)\)\);',
         r"emu_dmma_m8n8k4(\1, \2, \3, \4);", src, flags=re.S)
     assert count == 1 and "asm" not in src
     tmp_path = tmp_path_factory.mktemp("emu")
-    (tmp_path / "kern.cpp").write_text(src)
-    shutil.copy(emu / "sub_matmul_main.cpp", tmp_path)
-    build = subprocess.run(
-        ["g++", "-std=c++20", "-O1", f"-I{emu}", "-Wno-unknown-pragmas",
-         "-o", "emu", "sub_matmul_main.cpp"],
-        cwd=tmp_path, capture_output=True, text=True, timeout=300)
-    assert build.returncode == 0, build.stderr
-    return tmp_path / "emu"
+    procs = {}
+    for name in (None, *SUB_MATMUL_MUTANTS):
+        text = src
+        if name is not None:
+            old, new = SUB_MATMUL_MUTANTS[name]
+            assert old in text, name
+            text = text.replace(old, new)
+        d = tmp_path / (name or "base")
+        d.mkdir()
+        (d / "kern.cpp").write_text(text)
+        shutil.copy(emu / "sub_matmul_main.cpp", d)
+        procs[name] = subprocess.Popen(
+            ["g++", "-std=c++20", "-O1", f"-I{emu}", "-Wno-unknown-pragmas",
+             "-o", "emu", "sub_matmul_main.cpp"],
+            cwd=d, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for name, proc in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, (name, err)
+    return {name: tmp_path / (name or "base") / "emu" for name in procs}
+
+
+@pytest.fixture(scope="module")
+def emu_binary(emu_binaries):
+    return emu_binaries[None]
+
+
+# the emulator main's argument for each kernel, and the lines it prints: one
+# a case and the verdict
+EMU_RUNS = {"the 128-tile kernel": ("f32", 17),
+            "the 64-tile kernel": ("f32", 17),
+            "the f64 DMMA kernel": ("f64", 11),
+            "the c64 kernel": ("c64", 9),
+            "the c128 DMMA kernel": ("c128", 9)}
 
 
 @pytest.mark.parametrize("sms,kernel", [(1, "the 128-tile kernel"),
                                         (10 ** 6, "the 64-tile kernel"),
-                                        (1, "the f64 DMMA kernel")])
+                                        (1, "the f64 DMMA kernel"),
+                                        (1, "the c64 kernel"),
+                                        (1, "the c128 DMMA kernel")])
 def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
         emu_binary, sms, kernel):
     """csrc/sub_matmul.cu itself, run as fibers on a CPU thread (see
@@ -317,14 +379,31 @@ def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
     written.  In f32 the stand-in reports `sms` SMs, which sends every
     launch to one kernel of the launch rule: both give the same bits.
     Every f64 launch takes the DMMA kernel, whose inline PTX becomes the
-    stand-in's fragment exchange."""
-    f64 = "f64" in kernel
-    run = subprocess.run([str(emu_binary), "f64" if f64 else "f32"],
+    stand-in's fragment exchange.  The complex kernels (c64 on the FMA
+    path, c128 through the stand-in's DMMA) give, bit for bit, the two real
+    fma chains of B − P·Qᴴ (re over pr·qr, pi·qi; im over pi·qr, −pr·qi;
+    l ascending) on a tile, ragged edges, in-place strided and offset
+    views, k = 0, 1, 5 and 130."""
+    arg, lines = EMU_RUNS[kernel]
+    run = subprocess.run([str(emu_binary), arg],
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, EMU_SMS=str(sms)))
     assert run.returncode == 0, (kernel, run.stdout, run.stderr)
-    lines = run.stdout.splitlines()
-    assert lines[-1] == "ALL OK" and len(lines) == (11 if f64 else 17)
+    out = run.stdout.splitlines()
+    assert out[-1] == "ALL OK" and len(out) == lines
+
+
+@pytest.mark.parametrize("dtype", ["c64", "c128"])
+@pytest.mark.parametrize("mutant", list(SUB_MATMUL_MUTANTS))
+def test_complex_sub_matmul_mutants_fail_on_cpu_threads(emu_binaries,
+                                                        mutant, dtype):
+    """A copy of the source with Q's conjugate dropped where it is loaded
+    fails the complex cases of both kernels."""
+    run = subprocess.run([str(emu_binaries[mutant]), dtype],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, EMU_SMS="132"))
+    assert run.returncode != 0 and run.stdout.splitlines()[-1] == "FAIL", (
+        mutant, run.stdout)
 
 
 SYMV_MUTANTS = {
@@ -616,6 +695,36 @@ def test_chip_smoke_f64_phase_passes_on_the_cpu(monkeypatch):
     rolled, windowed = cs.f64_phase(torch.device("cpu"), 200)
     zeros = dict.fromkeys(tk.LAUNCHES, 0)
     assert rolled == zeros and windowed == zeros
+
+
+def test_chip_smoke_complex_kernel_phase_passes_on_the_cpu():
+    """The card script's complex sub_matmul phase at small sizes on CPU
+    tensors: every case, the first rolled panel in place on its strided
+    view included, passes its check, and the row-block call stays within
+    the bound."""
+    cs = _chip_smoke()
+    before = dict(tk.LAUNCHES)
+    rows = cs.complex_kernel_phase(torch.device("cpu"), 256, timed=False,
+                                   block=64, ragged=(300, 277))
+    assert [(r["case"], r["dtype"]) for r in rows] == [
+        (case, dtype) for dtype in ("complex64", "complex128")
+        for case in ("rank2k", "wy", "ragged_k5", "ragged_k130",
+                     "same_bits_rank2k")]
+    assert rows[0]["m"] == 192 and rows[3]["k"] == 130
+    assert all(r["max_abs_err"] <= r["bound"] for r in rows)
+    assert tk.LAUNCHES == before
+
+
+def test_chip_smoke_hermitian_and_gev_phases_pass_on_the_cpu(monkeypatch):
+    """The card script's hermitian and gev phases at n = 130 (modes at 100)
+    on the CPU: every check of both dtypes and all modes passes, cold and
+    warm solves are bitwise equal, and no kernel is launched."""
+    cs = _chip_smoke()
+    zeros = dict.fromkeys(tk.LAUNCHES, 0)
+    monkeypatch.setattr(cs, "_want", lambda **counts: dict(zeros))
+    cpu = torch.device("cpu")
+    assert cs.hermitian_phase(cpu, 130, 100) == (zeros, zeros)
+    assert cs.gev_phase(cpu, 130) == (zeros, zeros)
 
 
 def test_import_runs_no_nvcc(tmp_path):

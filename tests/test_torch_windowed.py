@@ -386,7 +386,7 @@ def test_auto_on_a_cpu_tensor_is_rolled(monkeypatch):
 
 def test_windowed_refuses_complex():
     a = t(sym(16, 31)).to(torch.complex128)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="real only"):
         th.tridiagonalize(a, impl="windowed")
 
 
@@ -422,7 +422,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
                                                    _meta(8, 2, dtype=d))):
         with pytest.raises(NotImplementedError, match="device"):
             call(torch.float32)
-        with pytest.raises(NotImplementedError, match="A13"):
+        with pytest.raises(NotImplementedError, match="real only"):
             call(torch.complex64)
         with pytest.raises(TypeError, match="dtype"):
             call(torch.float16)
