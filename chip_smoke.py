@@ -49,7 +49,10 @@ result line:
               then ``sub_matmul`` on c64 and c128 (B − P·Qᴴ) at the
               Hermitian path's shapes (the first rolled panel in place on
               its strided view, a WY block), a ragged shape with k = 5 and
-              130, and its large case against row blocks, bitwise;
+              130, the squares on either side of the complex launch rule,
+              and its large case in one call (the larger-tile kernel)
+              against row blocks small enough for the 64-tile kernel,
+              bitwise;
 4. slice    — the rolled path: ``eigen_s(frank(8192, float32))`` cold, warm
               and with the stage split; checks residual, orthogonality, the
               scaled eigenvalue error, the kernel launch counts per solve
@@ -431,44 +434,111 @@ def kernel_phase(device, n_main: int, timed: bool, n_win: int = N_WINDOWED,
             for case in kernel_cases(n_main, n_win, **sizes)]
 
 
-def complex_kernel_cases(n_main: int, ragged=(1000, 777)):
+# The complex launch rules of csrc/sub_matmul.cu: (tile rows, tile
+# columns, tiles an SM).  A launch with at least that many tiles for each
+# SM takes the larger-tile kernel of its type (c64 64 x 128 on the FMA
+# pipes, c128 the cp.async ring on DMMA); the 64 x 64-tile kernel takes
+# the rest.  Both rules count 64 x 64 tiles.  A CPU test holds these
+# numbers to the source's constants.
+COMPLEX_RULE = {"complex64": (64, 64, 1), "complex128": (64, 64, 1)}
+
+
+def _sm_count(device) -> int:
+    """The card's SMs; an H100's 132 for a CPU rehearsal."""
+    import torch
+
+    if device.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def complex_kernel_of(dtype: str, m: int, n: int, sms: int) -> str:
+    """The kernel that the complex launch rule gives an (m, n) call."""
+    tm, tn, factor = COMPLEX_RULE[dtype]
+    big = -(-m // tm) * -(-n // tn) >= factor * sms
+    return {"complex64": ("c64_wide", "c64"),
+            "complex128": ("c128_ring", "c128")}[dtype][not big]
+
+
+def complex_rule_square(dtype: str, sms: int) -> int:
+    """The smallest square that the complex launch rule gives the
+    larger-tile kernel."""
+    m = 1
+    while complex_kernel_of(dtype, m, m, sms) == complex_kernel_of(
+            dtype, 1, 1, sms):
+        m += 1
+    return m
+
+
+def complex_kernel_cases(n_main: int, rule: int, ragged=(1000, 777)):
     """(label, m, n, k, view) of the complex kernels, as
     :func:`kernel_cases`: the Hermitian path's first rolled panel, in place
     on the view ``work[64:, 64:]`` of the n_main × n_main working matrix,
-    a full WY block of its back-transform, and a ragged shape with k = 5
-    and with k = 130, the latter in place on an offset view with an odd
-    leading dimension."""
+    a full WY block of its back-transform, a ragged shape with k = 5 and
+    with k = 130, the latter in place on an offset view with an odd
+    leading dimension, and the squares just under and at `rule`, the
+    smallest that the launch rule gives the larger-tile kernel."""
     m, n = ragged
     return [("rank2k", n_main - 64, n_main - 64, 128, (64, 0, 0)),
             ("wy", n_main, n_main, 128, None),
             ("ragged_k5", m, n, 5, None),
-            ("ragged_k130", m, n, 130, (37, 3, 2))]
+            ("ragged_k130", m, n, 130, (37, 3, 2)),
+            ("under_rule", rule - 1, rule - 1, 128, None),
+            ("over_rule", rule, rule, 128, None)]
 
 
-def complex_kernel_phase(device, n_main: int, timed: bool, block: int = 384,
-                         **sizes):
+def complex_block_rows(dtype: str, n: int, sms: int) -> int:
+    """The most rows, a multiple of 8, whose (rows, n) call the launch rule
+    gives the 64-tile kernel."""
+    block = 0
+    while complex_kernel_of(dtype, block + 8, n, sms) in ("c64", "c128"):
+        block += 8
+    if block == 0:
+        raise ValueError(f"no row block of width {n} stays under the "
+                         f"{dtype} launch rule")
+    return block
+
+
+def complex_kernel_phase(device, n_main: int, timed: bool, block=None,
+                         rule=None, **sizes):
     """sub_matmul on c64 and c128 against its plain version, with
     ``torch.addmm(b, p, q.conj().T, alpha=-1)`` (the JAX package's own form
     of the complex case) as the library call; then the first case in one
-    call against the same product in row blocks of `block`, bitwise equal
-    on the card (both take the same kernel, whose sums do not depend on
-    where a tile lies).  Returns one row per (case, dtype)."""
+    call against the same product in row blocks of `block` rows (by
+    default the most that the launch rule gives the 64-tile kernel), bitwise
+    equal on the card: the whole call takes the larger-tile kernel, the
+    blocks the 64-tile one, and both give the bits of the same real fma
+    chains.
+    Each row names the kernel the rule gave it (``kernel``).  Returns one
+    row per (case, dtype)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(5678)
+    sms = _sm_count(device)
     rows = []
     for dtype in (torch.complex64, torch.complex128):
-        cases = complex_kernel_cases(n_main, **sizes)
-        rows += [_kernel_case(device, gen, dtype, timed, *case)
-                 for case in cases]
+        name = _name(dtype)
+        cases = complex_kernel_cases(
+            n_main, rule=rule or complex_rule_square(name, sms), **sizes)
+        rows += [_kernel_case(device, gen, dtype, timed, *case, extra={
+            "kernel": complex_kernel_of(name, case[1], case[2], sms)})
+            for case in cases]
         _, m, n, k, _ = cases[0]
+        rows_b = block or complex_block_rows(name, n, sms)
+        pair = [complex_kernel_of(name, m, n, sms),
+                complex_kernel_of(name, rows_b, n, sms)]
+        if device.type == "cuda" and pair[0] == pair[1]:
+            raise AssertionError(f"same_bits_rank2k {name}: the whole call "
+                                 f"and its blocks of {rows_b} rows take one "
+                                 f"kernel, {pair[0]}")
         rows.append(_same_bits_case(device, gen, dtype, "same_bits_rank2k",
-                                    m, n, k, n_main, block))
+                                    m, n, k, n_main, rows_b,
+                                    extra={"kernels": pair}))
     return rows
 
 
 def _kernel_case(device, gen, dtype, timed: bool, label: str, m: int,
-                 n: int, k: int, view):
+                 n: int, k: int, view, extra=None):
     """One case of :func:`kernel_cases` or :func:`complex_kernel_cases`:
     the kernel against its plain version, timed beside the library call
     and the bound if `timed`."""
@@ -506,7 +576,8 @@ def _kernel_case(device, gen, dtype, timed: bool, label: str, m: int,
     name = _name(dtype)
     bound = _product_err_bound(name, b, p, q, k)
     row = {"name": "sub_matmul", "case": label, "dtype": name, "m": m,
-           "n": n, "k": k, "max_abs_err": err, "bound": bound}
+           "n": n, "k": k, "max_abs_err": err, "bound": bound,
+           **(extra or {})}
     if dtype in (torch.float64, torch.complex128):
         # reported, not gated: whether DMMA gives cuBLAS's bits
         row["bitwise_plain"] = same
@@ -547,7 +618,7 @@ def same_bits_phase(device, big: int = BIG, block: int = 384):
 
 
 def _same_bits_case(device, gen, dtype, label: str, m: int, n: int, k: int,
-                    ld: int, block: int):
+                    ld: int, block: int, extra=None):
     """B (m, n) with leading dimension ld, in one sub_matmul call and in
     row blocks: bitwise equal on the card, within the bound elsewhere."""
     import torch
@@ -568,7 +639,7 @@ def _same_bits_case(device, gen, dtype, label: str, m: int, n: int, k: int,
     bound = _product_err_bound(_name(dtype), b, p, q, k)
     row = {"name": "sub_matmul", "case": label, "dtype": _name(dtype),
            "m": m, "n": n, "k": k, "block_rows": block, "max_abs_err": err,
-           "bound": bound, "bitwise_equal": equal}
+           "bound": bound, "bitwise_equal": equal, **(extra or {})}
     return _report(row, equal if device.type == "cuda" else err <= bound,
                    "whole and in row blocks give other bits")
 

@@ -116,28 +116,43 @@
 // The complex entry points (eigenexa_sub_matmul_c64, _c128) serve the
 // Hermitian driver eigen_h: its rolled reduction's rank-2k updates and its
 // back-transform blocks, k = 128, in place.  On the TPU complex never reached
-// Pallas (`_shape_eligible` sent it to `b - p @ conj(q).T`); here it has two
-// kernels of its own, below, each a simple tiled kernel: `sub_matmul_kernel_
-// c64` on the FP32 FMA pipes and `sub_matmul_kernel_c128` on DMMA.  A complex
-// multiply-add is 8 real operations, so at k = 128 both are bound by
-// operations: 8128^2 x 128 takes 1.01 ms at 67 TFLOP/s, against 0.32 ms
-// (c64) and 0.63 ms (c128) of bytes; the c128 kernel's FP64 work outside the
-// tensor cores would take 2.0 ms.  Their sums are the real fma chains the
-// block comment above them spells out, in one order: no split of k, no
-// atomics.  Measured there (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W):
-// c64 1.79 ms and c128 2.75 ms of device time, against 1.38 and 1.94 ms for
-// torch.addmm(b, p, q.conj().T, alpha=-1); what they lack is in ROADMAP B3.
+// Pallas (`_shape_eligible` sent it to `b - p @ conj(q).T`); here each
+// complex type has two kernels and a launch rule like the f32 one, all four
+// summing the same real fma chains (the block comment above them), so both
+// kernels of a type give the same bits.  A complex multiply-add is 8 real
+// operations, so at k = 128 both types are bound by operations: 8128^2 x 128
+// takes 1.01 ms at 67 TFLOP/s, against 0.32 ms (c64) and 0.63 ms (c128) of
+// bytes; c128's FP64 work outside the tensor cores would take 2.0 ms.
+//   * c64: `sub_matmul_kernel_c64_wide`, the f32 128-tile kernel's design on
+//     complex values (64 x 128 complex tiles, a 4 x 8 micro-tile a thread,
+//     16-byte shared reads, register double buffering), where its tiles
+//     fill the SMs; `sub_matmul_kernel_c64`, the 64 x 64-tile kernel,
+//     below that (the late, small trailing updates);
+//   * c128: `sub_matmul_kernel_c128_ring`, 64 x 64 complex tiles on DMMA fed
+//     by a 4-stage cp.async ring of raw P and Q slices, where its tiles fill
+//     the SMs and the operands are 16-byte aligned; the 64 x 64-tile
+//     kernel `sub_matmul_kernel_c128` (register-staged slices) below that.
+// Measured (chip_smoke.py and tools/kernel_variants.py --sweep-complex,
+// NVIDIA H100 80GB HBM3, 700.00 W), rank-2k 8128^2 x 128 device time:
+// c64 1.79 ms (the 64-tile kernel) -> 1.59-1.60 ms, against 1.35-1.36 ms for
+// torch.addmm(b, p, q.conj().T, alpha=-1); c128 2.75 -> 1.81 ms, against
+// 1.84-1.91 ms.  Both rules take the larger-tile kernel once the 64-tile one
+// would have at least one 64 x 64 tile for each SM (a square of m >= 705 on
+// 132 SMs): for c64 that is where the sweep crosses, for c128 the ring is
+// faster at every size (see `launch`).  Below m = 1024 a call costs the
+// host's launch interval whichever kernel runs.
 //
 // As built (nvcc -O3 for sm_90a; `python3 chip_smoke.py --kernels` prints
 // ptxas's figures): the 128-tile kernel takes 126 registers a thread, 0 bytes
 // of spill and 33,792 bytes of static shared memory a block; the 64-tile
 // kernel 40 registers and 8,320 bytes; the DMMA kernel 128 registers and
-// 24,576 bytes; the c64 kernel 64 registers and 8,320 bytes; the c128
-// kernel 122 registers and 16,384 bytes; none spills.
+// 24,576 bytes; the c64 kernels 128 registers and 25,088 bytes (64 x 128)
+// and 64 registers and 8,320 bytes (64 x 64); the c128 kernels 128
+// registers and 65,536 bytes of dynamic shared memory (the ring) and 122
+// registers and 16,384 bytes; none spills.
 //
-// Later work, not here: asynchronous staging (cp.async or TMA) of P and Q in
-// a ring of three or more slices, and of B's tile into shared memory at the
-// block's start, so that the loads and the epilogue's read run under the
+// Later work, not here: asynchronous staging (cp.async or TMA) for the real
+// kernels, so that the loads and the epilogue's read run under the FMAs and
 // DMMAs; the lower tiles only for the symmetric trailing update (the callers
 // update the full square only because dense tiles suited the TPU).
 
@@ -228,7 +243,7 @@ constexpr int kStage = kBigTile * kRowQuads / kThreads;
 constexpr int kPassRows = kThreads / kRowQuads;  // rows one pass covers
 static_assert(kStage * kThreads == kBigTile * kRowQuads, "whole passes");
 
-__device__ __forceinline__ bool aligned16(const void* ptr) {
+__host__ __device__ __forceinline__ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
@@ -445,6 +460,21 @@ __device__ __forceinline__ void dmma_m8n8k4(double (&c)[2], double a,
                : "+d"(c[0]), "+d"(c[1]) : "d"(a), "d"(b));
 }
 
+// D = A * B + D on one warp's 16 x 8 x 4 f64 fragments: the two 8 x 8 x 4
+// products of rows g and g + 8 that share B, in one instruction.  Lane
+// g * 4 + t holds A[g][t] in a_lo, A[g + 8][t] in a_hi, B[t][g], and
+// D[g][2t], D[g][2t + 1] in lo, D[g + 8][2t], D[g + 8][2t + 1] in hi.  On
+// an H100 this shape issues at twice m8n8k4's rate (65 against 33 TFLOP/s,
+// tools/dmma_rate.py), and both give the bits of the fma chain over k.
+__device__ __forceinline__ void dmma_m16n8k4(double (&lo)[2], double (&hi)[2],
+                                             double a_lo, double a_hi,
+                                             double b) {
+  asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+               "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};"
+               : "+d"(lo[0]), "+d"(lo[1]), "+d"(hi[0]), "+d"(hi[1])
+               : "d"(a_lo), "d"(a_hi), "d"(b));
+}
+
 // Operand row `row`, columns kt and kt + 4: the two k steps of fragment
 // column t = kt - k0 of a slice; zero for a row >= rows and past k.
 __device__ __forceinline__ double2 load_k_steps(const double* __restrict__ base,
@@ -607,11 +637,18 @@ sub_matmul_kernel_f64_dmma(int m, int n, int k,
 //   im: + pi * cr, + pr * ci    (= pi * qr - pr * qi)
 // the real products [Pr -Pi] . [Cr Ci]^T and [Pi Pr] . [Cr Ci]^T of depth 2k,
 // which share the conjugated Q tile.  A negated factor is exact, so these are
-// the bits of the same chains written over Q itself.
+// the bits of the same chains written over Q itself.  Every kernel below
+// takes the conjugate's sign through `conj_part`.
+
+// A real part of conj(Q): the imaginary part negated.
+template <typename T>
+__device__ __forceinline__ T conj_part(T x, bool imaginary) {
+  return imaginary ? -x : x;
+}
 
 template <typename V>
 __device__ __forceinline__ V conj_value(V v) {
-  v.y = -v.y;
+  v.y = conj_part(v.y, true);
   return v;
 }
 
@@ -627,10 +664,12 @@ __device__ __forceinline__ V load_value(const V* __restrict__ base,
   return zero;
 }
 
-// c64: the 64-tile kernel's layout on complex values.  A 64 x 64 tile a
-// block, 256 threads, a 4 x 4 micro-tile of complex outputs each (32 float
-// accumulators), complex K-slices of 8 staged in shared memory.  A k step
-// reads 8 float2 from shared memory for 64 FMAs.
+// c64, the 64-tile kernel, for the launches too small to give each SM a
+// 64 x 128 tile of `sub_matmul_kernel_c64_wide` (the late trailing updates
+// of a reduction): the 64-tile kernel's layout on complex values.  A 64 x 64
+// tile a block, 256 threads, a 4 x 4 micro-tile of complex outputs each (32
+// float accumulators), complex K-slices of 8 staged in shared memory.  A k
+// step reads 8 float2 from shared memory for 64 FMAs.
 constexpr int kCTile = 64;               // complex outputs along a tile edge
 constexpr int kCSlice = 8;               // complex K-slice
 constexpr int kCMicro = kCTile / kSide;  // 4 x 4 outputs a thread
@@ -699,7 +738,9 @@ sub_matmul_kernel_c64(int m, int n, int k,
   }
 }
 
-// c128 on the FP64 tensor cores: a 64 x 64 tile of complex outputs a block,
+// c128 on the FP64 tensor cores, the 64-tile kernel, for the launches too
+// small to give each SM a tile of `sub_matmul_kernel_c128_ring` (and for
+// operands not 16-byte aligned): a 64 x 64 tile of complex outputs a block,
 // 8 warps in 4 x 2, each warp 16 x 32 outputs as 2 x 4 DMMA fragments of
 // 8 x 8 with a real and an imaginary accumulator (32 doubles a thread, as the
 // f64 kernel).  A DMMA k step of 4 real terms is two complex k: lane
@@ -821,6 +862,453 @@ sub_matmul_kernel_c128(int m, int n, int k,
 }
 
 // ---------------------------------------------------------------------------
+// c64, 64 x 128 complex tile a block: the f32 128-tile kernel's design
+// ---------------------------------------------------------------------------
+//
+// 256 threads as 16 x 16; a thread keeps a 4 x 8 micro-tile of complex
+// outputs (64 float accumulators): rows 32p + 2ty + {0, 1} (p = 0, 1) and
+// columns 32q + 2tx + {0, 1} (q = 0..3), so every read of a k step is one
+// 16-byte vector of two neighbouring complex values: 2 of P and 4 of conj(Q)
+// for 128 FMAs.  In a warp the P reads are broadcasts (two values of ty) and
+// a quarter warp's Q reads cover 128 contiguous bytes: no bank conflict.
+// Complex K-slices of 8 are double-buffered through registers (one 16-byte
+// global load of P and two of Q a thread, two complex values each), stored
+// k-major into rows padded by two values (16-byte aligned for the reads; the
+// transposing 8-byte stores of a half warp land on distinct banks), one
+// barrier a slice; two blocks an SM.  The epilogue reads B and writes OUT
+// 16 bytes (two complex values) a thread where the addresses allow.  The
+// four fma of each (i, j, l) are the 64-tile kernel's, in its order, over the
+// same values.
+//
+// Measured (tools/kernel_variants.py --sweep-complex, NVIDIA H100 80GB
+// HBM3, 700.00 W), 8128^2 x 128: 1.59-1.60 ms of device time, 63% of the
+// 1.01 ms bound, against 1.35-1.36 ms for torch.addmm and 1.79 ms for the
+// 64-tile kernel.  Copies with a part taken out: without B's read 1.58 ms;
+// with the imaginary chain's FMAs dropped (half the FMAs) 1.17 ms, a saving
+// of 0.42 ms of the 0.50 ms those FMAs take at the pipes' peak.  So the FMAs
+// hide little of the rest of the loop (shared-memory reads with four warps
+// a scheduler, the staging, a barrier a slice).  One block an SM (135
+// registers) took 1.84 ms.
+constexpr int kC2TileM = 64;              // complex output rows of a block
+constexpr int kC2TileN = 128;             // complex output columns
+constexpr int kC2Slice = 8;               // complex K-slice
+constexpr int kC2RowP = kC2TileM + 2;     // padded k-major row, complex
+constexpr int kC2RowQ = kC2TileN + 2;
+constexpr long long kC2TilesPerSm = 1;    // the c64 rule's factor (64-tiles)
+constexpr int kC2BlocksPerSm = 2;         // __launch_bounds__' minimum
+// staging: a slice of an operand tile is rows of four 16-byte pairs
+constexpr int kC2PassRows = kThreads / (kC2Slice / 2);
+constexpr int kC2StageP = kC2TileM / kC2PassRows;
+constexpr int kC2StageQ = kC2TileN / kC2PassRows;
+static_assert(kC2StageP * kC2PassRows == kC2TileM &&
+              kC2StageQ * kC2PassRows == kC2TileN, "whole passes");
+static_assert(kC2TileM == 64 && kC2TileN == 128, "the micro-tile's map");
+
+// Complex values k0 and k0 + 1 (k0 even) of row `row` of an operand as one
+// float4; zero for a row >= rows and for columns >= k.
+__device__ __forceinline__ float4 load_c_pair(const float2* base, long long ld,
+                                              int row, int rows, int k0,
+                                              int k, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row < rows && k0 < k) {
+    const float2* src = base + static_cast<long long>(row) * ld + k0;
+    if (vec && k0 + 2 <= k) {
+      v = *reinterpret_cast<const float4*>(src);
+    } else {
+      v.x = src[0].x;
+      v.y = src[0].y;
+      if (k0 + 1 < k) {
+        v.z = src[1].x;
+        v.w = src[1].y;
+      }
+    }
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads, kC2BlocksPerSm)
+sub_matmul_kernel_c64_wide(int m, int n, int k,
+                           const float2* b, long long ldb,
+                           const float2* __restrict__ p, long long ldp,
+                           const float2* __restrict__ q, long long ldq,
+                           float2* out, long long ldo) {
+  // ps[buf][l][r] = P[row0 + r, k0 + l];  cs[buf][l][c] = conj(Q[col0 + c,
+  // k0 + l])
+  __shared__ __align__(16) float2 ps[2][kC2Slice][kC2RowP];
+  __shared__ __align__(16) float2 cs[2][kC2Slice][kC2RowQ];
+
+  const int t = threadIdx.x;
+  const int tx = t % kSide;
+  const int ty = t / kSide;
+  const int row0 = blockIdx.y * kC2TileM;
+  const int col0 = blockIdx.x * kC2TileN;
+  // staging: in pass e this thread brings the pair sl, sl + 1 of row
+  // sr0 + e * kC2PassRows of the P tile and of the Q tile
+  const int sr0 = t / (kC2Slice / 2);
+  const int sl = (t % (kC2Slice / 2)) * 2;
+  const bool pvec = aligned16(p) && ldp % 2 == 0;
+  const bool qvec = aligned16(q) && ldq % 2 == 0;
+
+  float re[4][8], im[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) re[i][j] = im[i][j] = 0.f;
+
+  // the transposing stores of one staged pair; Q's conjugate is taken here
+  auto store_p = [&](int buf, int r, float4 v) {
+    ps[buf][sl][r] = make_float2(v.x, v.y);
+    ps[buf][sl + 1][r] = make_float2(v.z, v.w);
+  };
+  auto store_c = [&](int buf, int r, float4 v) {
+    cs[buf][sl][r] = conj_value(make_float2(v.x, v.y));
+    cs[buf][sl + 1][r] = conj_value(make_float2(v.z, v.w));
+  };
+
+  const int slices = (k + kC2Slice - 1) / kC2Slice;
+  if (slices > 0) {
+#pragma unroll
+    for (int e = 0; e < kC2StageP; ++e) {
+      const int sr = sr0 + e * kC2PassRows;
+      store_p(0, sr, load_c_pair(p, ldp, row0 + sr, m, sl, k, pvec));
+    }
+#pragma unroll
+    for (int e = 0; e < kC2StageQ; ++e) {
+      const int sr = sr0 + e * kC2PassRows;
+      store_c(0, sr, load_c_pair(q, ldq, col0 + sr, n, sl, k, qvec));
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < slices; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < slices;
+    float4 pnext[kC2StageP], qnext[kC2StageQ];
+    if (more) {
+      const int k0 = (s + 1) * kC2Slice + sl;
+#pragma unroll
+      for (int e = 0; e < kC2StageP; ++e)
+        pnext[e] = load_c_pair(p, ldp, row0 + sr0 + e * kC2PassRows, m, k0,
+                               k, pvec);
+#pragma unroll
+      for (int e = 0; e < kC2StageQ; ++e)
+        qnext[e] = load_c_pair(q, ldq, col0 + sr0 + e * kC2PassRows, n, k0,
+                               k, qvec);
+    }
+#pragma unroll
+    for (int l = 0; l < kC2Slice; ++l) {
+      float2 a[4], c[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&ps[cur][l][32 * h + 2 * ty]);
+        a[2 * h] = make_float2(v.x, v.y);
+        a[2 * h + 1] = make_float2(v.z, v.w);
+      }
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&cs[cur][l][32 * h + 2 * tx]);
+        c[2 * h] = make_float2(v.x, v.y);
+        c[2 * h + 1] = make_float2(v.z, v.w);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          re[i][j] = fmaf(a[i].x, c[j].x, re[i][j]);
+          re[i][j] = fmaf(-a[i].y, c[j].y, re[i][j]);
+          im[i][j] = fmaf(a[i].y, c[j].x, im[i][j]);
+          im[i][j] = fmaf(a[i].x, c[j].y, im[i][j]);
+        }
+    }
+    if (more) {
+#pragma unroll
+      for (int e = 0; e < kC2StageP; ++e)
+        store_p(cur ^ 1, sr0 + e * kC2PassRows, pnext[e]);
+#pragma unroll
+      for (int e = 0; e < kC2StageQ; ++e)
+        store_c(cur ^ 1, sr0 + e * kC2PassRows, qnext[e]);
+    }
+    __syncthreads();
+  }
+
+  // re[2h + a][2q + e] belongs to row row0 + 32h + 2ty + a and column
+  // col0 + 32q + 2tx + e.  For each row the four pairs of B are read before
+  // the first is written: OUT may be B.
+  const bool ovec = aligned16(b) && aligned16(out) && ldb % 2 == 0 &&
+                    ldo % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gr = row0 + 32 * (i / 2) + 2 * ty + i % 2;
+    if (gr >= m) continue;
+    float4 bv[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int gc = col0 + 32 * h + 2 * tx;
+      bv[h] = load_c_pair(b, ldb, gr, m, gc, n, ovec);
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int gc = col0 + 32 * h + 2 * tx;
+      const float4 v = make_float4(
+          bv[h].x - re[i][2 * h], bv[h].y - im[i][2 * h],
+          bv[h].z - re[i][2 * h + 1], bv[h].w - im[i][2 * h + 1]);
+      float2* dst = out + static_cast<long long>(gr) * ldo + gc;
+      if (ovec && gc + 2 <= n) {
+        *reinterpret_cast<float4*>(dst) = v;
+      } else {
+        if (gc < n) dst[0] = make_float2(v.x, v.y);
+        if (gc + 1 < n) dst[1] = make_float2(v.z, v.w);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// c128, a ring of cp.async stages feeding DMMA
+// ---------------------------------------------------------------------------
+//
+// A 64 x 64 tile of complex outputs a block, 8 warps in 4 x 2, each warp
+// 16 x 32 outputs as 2 x 4 DMMA fragments of 8 x 8 with a real and an
+// imaginary accumulator (32 doubles a thread), two blocks an SM.  The k step
+// is the 64-tile kernel's: lane g * 4 + t takes complex k t / 2 of its step,
+// its real part for even t and its imaginary part for odd t, A = (pr, -pi)
+// for the real accumulator and (pi, pr) for the imaginary one, B = (cr, ci)
+// of C = conj(Q): the same operands in the same order, so the same bits.  The
+// two 8-row fragments of a warp take one m16n8k4 DMMA a fragment column and
+// k step, which on an H100 issues at twice m8n8k4's rate with the same
+// chain (tools/dmma_rate.py).  A lane reads its operands as single doubles
+// and flips the sign bit where the product needs -pi or the conjugate, with
+// no select.
+//
+// P and Q travel raw: complex K-slices of 8 (four k steps, a 128-byte row
+// segment) go from device memory to shared memory by 16-byte cp.async, one
+// complex value a copy, in a ring of kZ2Stages stages; while the block works
+// on slice s the copies of the next kZ2Stages - 1 slices are in flight, and
+// one barrier a slice both publishes slice s and frees the stage that the
+// copies issued next will fill.  The conjugate's sign is taken where a lane
+// reads its B operand (a negation is exact).  A row's eight values sit in
+// its 128 bytes XOR-swizzled by 2 * (row % 4), so that the 8-byte reads of
+// a half warp (four rows, 32 bytes each) fall on distinct banks.  Rows >= m
+// (or n) and columns >= k are stored as zeros, which leaves an accumulator
+// as it was.  The epilogue reads a row's values of B before it writes the
+// first of OUT, so OUT may be B.  Shared memory: 4 stages of 16 KB, dynamic.
+//
+// Chosen by tools/kernel_variants.py --sweep-complex (NVIDIA H100 80GB
+// HBM3, 700.00 W), rank-2k 8128^2 x 128: this form 1.81 ms of device time
+// against torch.addmm's 1.89 ms and the 64-tile kernel's 2.75 ms.  128 x 64
+// tiles (4 x 4 fragments a warp, 207 registers, one block an SM) took
+// 2.14 ms; three blocks an SM (80 registers, spilling) 6.9 ms; B's tile
+// staged into shared memory by cp.async under the DMMAs (a 64 KB share of
+// its own) 1.97 ms against 1.83 ms without; 3 stages 1.81-1.83 ms, as 4.
+// Without B's read the form takes 1.77 ms; without the imaginary
+// accumulator's DMMAs (half of them) 1.30 ms, a saving of 0.50 ms, all the
+// time those DMMAs take at m16n8k4's rate: the DMMAs run beside none of the
+// operand reads and staging, which take the other 1.30 ms.
+constexpr int kZ2TileM = 64;                     // complex output rows
+constexpr int kZ2TileN = 64;                     // complex output columns
+constexpr int kZ2Slice = 8;                      // complex K-slice: 4 k steps
+constexpr int kZ2Stages = 4;                     // stages of the ring
+constexpr int kZ2WarpsM = 4;                     // warps along the rows
+constexpr int kZ2BlocksPerSm = 2;                // __launch_bounds__' minimum
+constexpr long long kZ2TilesPerSm = 1;           // the c128 rule's factor
+constexpr int kZ2WarpsN = kThreads / 32 / kZ2WarpsM;
+constexpr int kZ2FragM = kZ2TileM / kZ2WarpsM / 8;
+constexpr int kZ2FragN = kZ2TileN / kZ2WarpsN / 8;
+constexpr int kZ2StageElems = (kZ2TileM + kZ2TileN) * kZ2Slice;
+constexpr int kZ2Bytes = kZ2Stages * kZ2StageElems * 16;
+static_assert(kZ2Slice == 8, "a 128-byte row segment, swizzled by row % 4");
+static_assert(kZ2Stages >= 2, "a ring");
+static_assert(kZ2FragM % 2 == 0, "16-row DMMA fragments");
+static_assert(kZ2FragM * 8 * kZ2WarpsM == kZ2TileM &&
+              kZ2FragN * 8 * kZ2WarpsN == kZ2TileN, "whole fragments");
+static_assert((kZ2TileM * kZ2Slice) % kThreads == 0 &&
+              (kZ2TileN * kZ2Slice) % kThreads == 0, "whole passes");
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::
+               "r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+constexpr unsigned long long kSignBit = 1ull << 63;
+
+// x with its sign bit flipped where `mask` has it: an exact negation, one
+// integer operation on the high word
+__device__ __forceinline__ double flip_sign(double x,
+                                            unsigned long long mask) {
+  return __longlong_as_double(__double_as_longlong(x) ^ mask);
+}
+
+// The place of complex value `c` (0..7) of row `r` in a ring stage's row.
+__device__ __forceinline__ int ring_slot(int r, int c) {
+  return c ^ ((r & 3) << 1);
+}
+
+// Starts the copies of an operand tile's slice [k0, k0 + 8) into `dst`
+// (rows x 8 values, swizzled); zeros past `valid` rows and past k.
+template <int kRows>
+__device__ __forceinline__ void stage_slice(double2* dst,
+                                            const double2* __restrict__ src,
+                                            long long ld, int row0,
+                                            int valid, int k0, int k) {
+#pragma unroll
+  for (int e = 0; e < kRows * kZ2Slice / kThreads; ++e) {
+    const int idx = threadIdx.x + e * kThreads;
+    const int r = idx / kZ2Slice;
+    const int c = idx % kZ2Slice;
+    double2* d = dst + r * kZ2Slice + ring_slot(r, c);
+    if (r < valid && k0 + c < k)
+      cp_async16(d, src + static_cast<long long>(row0 + r) * ld + k0 + c);
+    else
+      *d = make_double2(0.0, 0.0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kZ2BlocksPerSm)
+sub_matmul_kernel_c128_ring(int m, int n, int k,
+                            const double2* b, long long ldb,
+                            const double2* __restrict__ p, long long ldp,
+                            const double2* __restrict__ q, long long ldq,
+                            double2* out, long long ldo) {
+  // the ring: stage s holds P's slice (kZ2TileM rows of 8) and then Q's
+  // (kZ2TileN rows)
+  extern __shared__ __align__(16) unsigned char ring_smem[];
+  double2* const ring = reinterpret_cast<double2*>(ring_smem);
+
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int g = lane / 4;          // fragment row of A and D, column of B
+  const int tk = lane % 4;         // real k of a step; D's pair
+  const int half = tk / 2;         // the complex k of the step it belongs to
+  const bool odd = tk % 2 != 0;    // its imaginary part
+  const int wr = (warp / kZ2WarpsN) * kZ2FragM * 8;  // the warp's rows
+  const int wc = (warp % kZ2WarpsN) * kZ2FragN * 8;  // and columns
+  const int row0 = blockIdx.y * kZ2TileM;
+  const int col0 = blockIdx.x * kZ2TileN;
+  const int rows = min(kZ2TileM, m - row0);   // valid rows of the tile
+  const int cols = min(kZ2TileN, n - col0);   // and columns
+  const int swz = (g & 3) << 1;    // ring_slot's XOR for this lane's rows
+  // the double of a complex value this lane reads, and the sign bits it
+  // flips: the real accumulator's A is -pi for odd t, B is conj(Q)'s -qi
+  const int part = tk & 1;
+  const unsigned long long neg_a = odd ? kSignBit : 0ull;
+  const unsigned long long neg_c =
+      __double_as_longlong(conj_part(1.0, odd)) & kSignBit;
+
+  auto stage = [&](int s) {
+    double2* st = ring + (s % kZ2Stages) * kZ2StageElems;
+    stage_slice<kZ2TileM>(st, p, ldp, row0, rows, s * kZ2Slice, k);
+    stage_slice<kZ2TileN>(st + kZ2TileM * kZ2Slice, q, ldq, col0, cols,
+                          s * kZ2Slice, k);
+  };
+  const int slices = (k + kZ2Slice - 1) / kZ2Slice;
+
+  // re[i][j], im[i][j] = D[g][2tk], D[g][2tk + 1] of fragment (i, j): rows
+  // wr + 8i + g, columns wc + 8j + 2tk, + 1
+  double re[kZ2FragM][kZ2FragN][2], im[kZ2FragM][kZ2FragN][2];
+#pragma unroll
+  for (int i = 0; i < kZ2FragM; ++i)
+#pragma unroll
+    for (int j = 0; j < kZ2FragN; ++j)
+      re[i][j][0] = re[i][j][1] = im[i][j][0] = im[i][j][1] = 0.0;
+
+  // one group a slice, empty past the last, so that the wait below always
+  // leaves the newest kZ2Stages - 2 in flight
+#pragma unroll
+  for (int s = 0; s < kZ2Stages - 1; ++s) {
+    if (s < slices) stage(s);
+    cp_async_commit();
+  }
+
+  for (int s = 0; s < slices; ++s) {
+    cp_async_wait<kZ2Stages - 2>();
+    __syncthreads();
+    // the stage of slice s + kZ2Stages - 1 was read in step s - 1, which
+    // every thread has left
+    if (s + kZ2Stages - 1 < slices) stage(s + kZ2Stages - 1);
+    cp_async_commit();
+
+    const double2* sp = ring + (s % kZ2Stages) * kZ2StageElems;
+    const double2* sq = sp + kZ2TileM * kZ2Slice;
+    // the slice's four k steps in ascending order
+#pragma unroll
+    for (int h = 0; h < kZ2Slice / 2; ++h) {
+      // the doubles of complex k 2h + half in this lane's rows
+      const int e = 2 * ((2 * h + half) ^ swz);
+      double ar[kZ2FragM], ai[kZ2FragM], c[kZ2FragN];
+#pragma unroll
+      for (int i = 0; i < kZ2FragM; ++i) {
+        const double* row =
+            reinterpret_cast<const double*>(sp + (wr + i * 8 + g) * kZ2Slice);
+        ar[i] = flip_sign(row[e + part], neg_a);   // pr, or -pi
+        ai[i] = row[e + (part ^ 1)];               // pi, or pr
+      }
+#pragma unroll
+      for (int j = 0; j < kZ2FragN; ++j) {
+        const double* row =
+            reinterpret_cast<const double*>(sq + (wc + j * 8 + g) * kZ2Slice);
+        c[j] = flip_sign(row[e + part], neg_c);    // cr, or ci = -qi
+      }
+      // fragments 2u and 2u + 1 (rows 16u + g and 16u + 8 + g) in one
+      // 16 x 8 x 4 product
+#pragma unroll
+      for (int u = 0; u < kZ2FragM; u += 2)
+#pragma unroll
+        for (int j = 0; j < kZ2FragN; ++j)
+          dmma_m16n8k4(re[u][j], re[u + 1][j], ar[u], ar[u + 1], c[j]);
+#pragma unroll
+      for (int u = 0; u < kZ2FragM; u += 2)
+#pragma unroll
+        for (int j = 0; j < kZ2FragN; ++j)
+          dmma_m16n8k4(im[u][j], im[u + 1][j], ai[u], ai[u + 1], c[j]);
+    }
+  }
+
+  // a row's values of B are read before the first is written: OUT may be B
+#pragma unroll
+  for (int i = 0; i < kZ2FragM; ++i) {
+    const int r = wr + i * 8 + g;
+    if (r >= rows) continue;
+    const double2* src = b + static_cast<long long>(row0 + r) * ldb + col0;
+    double2* dst = out + static_cast<long long>(row0 + r) * ldo + col0;
+    double2 bv[kZ2FragN][2];
+#pragma unroll
+    for (int j = 0; j < kZ2FragN; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = wc + j * 8 + 2 * tk + e;
+        if (c < cols)
+          bv[j][e] = src[c];
+      }
+#pragma unroll
+    for (int j = 0; j < kZ2FragN; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = wc + j * 8 + 2 * tk + e;
+        if (c < cols)
+          dst[c] = make_double2(bv[j][e].x - re[i][j][e],
+                                bv[j][e].y - im[i][j][e]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The launch rule
 // ---------------------------------------------------------------------------
 
@@ -842,14 +1330,22 @@ int sm_count() {
 
 constexpr long long kBigTilesPerSm = 1;  // the f32 rule's factor
 
+// Whether a launch has at least `factor` tiles of tile_m x tile_n for each
+// SM (never where the SM count is unknown).
+bool fills_sms(int m, int n, int tile_m, int tile_n, long long factor) {
+  const int sms = sm_count();
+  const long long tiles = static_cast<long long>((m + tile_m - 1) / tile_m) *
+                          ((n + tile_n - 1) / tile_n);
+  return sms > 0 && tiles >= factor * sms;
+}
+
 int launch(int m, int n, int k, const float* b, long long ldb, const float* p,
            long long ldp, const float* q, long long ldq, float* out,
            long long ldo, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 big((n + kBigTile - 1) / kBigTile, (m + kBigTile - 1) / kBigTile);
-  const int sms = sm_count();
-  if (sms > 0 &&
-      static_cast<long long>(big.x) * big.y >= kBigTilesPerSm * sms) {
+  if (fills_sms(m, n, kBigTile, kBigTile, kBigTilesPerSm)) {
+    const dim3 big((n + kBigTile - 1) / kBigTile,
+                   (m + kBigTile - 1) / kBigTile);
     sub_matmul_kernel_f32_128<<<big, kThreads, 0, s>>>(
         m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
   } else {
@@ -870,23 +1366,74 @@ int launch(int m, int n, int k, const double* b, long long ldb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// c64: the 64 x 128-tile kernel where the 64-tile kernel would have at
+// least one tile for each SM, the 64-tile kernel below that (the late, small
+// trailing updates of a reduction), where it runs in one wave and is the
+// faster (tools/kernel_variants.py --sweep-complex: at m = 704, 121 tiles,
+// 0.0264 ms against 0.0305; at m = 768, 144 tiles, 0.0355 against 0.0307;
+// graph time, NVIDIA H100 80GB HBM3, 700.00 W).  Both give the same bits.
 int launch(int m, int n, int k, const float2* b, long long ldb,
            const float2* p, long long ldp, const float2* q, long long ldq,
            float2* out, long long ldo, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kCTile - 1) / kCTile, (m + kCTile - 1) / kCTile);
-  sub_matmul_kernel_c64<<<grid, kThreads, 0, s>>>(
-      m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  if (fills_sms(m, n, kCTile, kCTile, kC2TilesPerSm)) {
+    const dim3 grid((n + kC2TileN - 1) / kC2TileN,
+                    (m + kC2TileM - 1) / kC2TileM);
+    sub_matmul_kernel_c64_wide<<<grid, kThreads, 0, s>>>(
+        m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  } else {
+    const dim3 grid((n + kCTile - 1) / kCTile, (m + kCTile - 1) / kCTile);
+    sub_matmul_kernel_c64<<<grid, kThreads, 0, s>>>(
+        m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kMaxDevices = 64;
+
+// The ring kernel's dynamic shared memory, allowed once a device.
+cudaError_t allow_ring_smem() {
+  static bool allowed[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!allowed[device]) {
+    err = cudaFuncSetAttribute(sub_matmul_kernel_c128_ring,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kZ2Bytes);
+    if (err != cudaSuccess) return err;
+    allowed[device] = true;
+  }
+  return cudaSuccess;
+}
+
+// c128: the ring kernel where its tiles (64 x 64, as the other's) give each SM
+// at least one and the operands are 16-byte aligned (cp.async's copies; a
+// c128 tensor always is), the 64-tile kernel otherwise.  Both give the same
+// bits.  The sweep (tools/kernel_variants.py --sweep-complex, NVIDIA H100
+// 80GB HBM3, 700.00 W) has the ring faster at every size, also in one wave
+// (m = 704: 0.0200 ms of graph time against 0.0325); the 64-tile kernel keeps
+// the launches under one tile an SM all the same, where a call costs the
+// host's launch interval (0.03-0.05 ms) whichever kernel runs, so that
+// every run of chip_smoke.py holds the ring to its bits on the card.
 int launch(int m, int n, int k, const double2* b, long long ldb,
            const double2* p, long long ldp, const double2* q, long long ldq,
            double2* out, long long ldo, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kZTile - 1) / kZTile, (m + kZTile - 1) / kZTile);
-  sub_matmul_kernel_c128<<<grid, kThreads, 0, s>>>(
-      m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  const bool aligned = aligned16(b) && aligned16(p) && aligned16(q);
+  if (aligned && fills_sms(m, n, kZ2TileM, kZ2TileN, kZ2TilesPerSm)) {
+    const cudaError_t err = allow_ring_smem();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((n + kZ2TileN - 1) / kZ2TileN,
+                    (m + kZ2TileM - 1) / kZ2TileM);
+    sub_matmul_kernel_c128_ring<<<grid, kThreads, kZ2Bytes, s>>>(
+        m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  } else {
+    const dim3 grid((n + kZTile - 1) / kZTile, (m + kZTile - 1) / kZTile);
+    sub_matmul_kernel_c128<<<grid, kThreads, 0, s>>>(
+        m, n, k, b, ldb, p, ldp, q, ldq, out, ldo);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,11 +15,13 @@
 // kernel leaves out lets one thread read shared memory that another has not
 // yet written, or has already overwritten, and the bits come out wrong.
 //
-// The DMMA stand-in exchanges a warp's fragments through slots and computes
-// each lane's D[g][2t], D[g][2t + 1] as one fma chain over the four k of the
-// step in ascending order.  That order inside a k step is ASSUMED here: the
-// PTX ISA says which lane holds what, not how the tensor core rounds, and
-// only the card can check it (chip_smoke.py compares the kernel with cuBLAS).
+// The DMMA stand-ins (m8n8k4, and m16n8k4, two of them on one B) exchange a
+// warp's fragments through slots and compute each lane's D[g][2t],
+// D[g][2t + 1] as one fma chain over the four k of the step in ascending
+// order.  The PTX ISA says which lane holds what, not how the tensor core
+// rounds; on an H100 both shapes give that chain's bits on 524,288 random
+// outputs of mixed exponents (tools/dmma_rate.py), and chip_smoke.py holds
+// the kernels to cuBLAS and to each other on the card.
 // `__shfl_xor_sync` and `__ballot_sync` exchange values through per-warp
 // slots at a warp barrier in the same way.
 //
@@ -104,6 +106,31 @@ inline void emu_dmma_m8n8k4(double& c0, double& c1, double a, double b) {
   for (unsigned kk = 0; kk < 4; ++kk) {
     c0 = std::fma(slot[0][g * 4 + kk], slot[1][(2 * t) * 4 + kk], c0);
     c1 = std::fma(slot[0][g * 4 + kk], slot[1][(2 * t + 1) * 4 + kk], c1);
+  }
+}
+
+// mma.sync.aligned.m16n8k4.row.col.f64: the two m8n8k4 products of rows
+// g and g + 8 with one B, lane = g * 4 + t holding A[g][t] and A[g + 8][t]
+// in a_lo and a_hi, B[t][g] in b, D[g][2t..] in c0, c1 and D[g + 8][2t..]
+// in c2, c3; the same chain order a k step.
+inline double emu_frag16[2][kEmuMaxWarps][3][32];
+inline void emu_dmma_m16n8k4(double& c0, double& c1, double& c2, double& c3,
+                             double a_lo, double a_hi, double b) {
+  const unsigned lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  auto& slot = emu_frag16[emu_frag_set[threadIdx.x]][warp];
+  emu_frag_set[threadIdx.x] ^= 1;
+  slot[0][lane] = a_lo;
+  slot[1][lane] = a_hi;
+  slot[2][lane] = b;
+  emu_warp_barrier[warp].wait();
+  const unsigned g = lane / 4, t = lane % 4;
+  for (unsigned kk = 0; kk < 4; ++kk) {
+    const double b0 = slot[2][(2 * t) * 4 + kk];
+    const double b1 = slot[2][(2 * t + 1) * 4 + kk];
+    c0 = std::fma(slot[0][g * 4 + kk], b0, c0);
+    c1 = std::fma(slot[0][g * 4 + kk], b1, c1);
+    c2 = std::fma(slot[1][g * 4 + kk], b0, c2);
+    c3 = std::fma(slot[1][g * 4 + kk], b1, c3);
   }
 }
 
@@ -263,6 +290,18 @@ void emu_launch(F kernel, dim3 grid, int threads, A... args) {
         }
       }
     }
+}
+
+// A double's bits as an integer and back.
+inline long long __double_as_longlong(double x) {
+  long long v;
+  memcpy(&v, &x, sizeof v);
+  return v;
+}
+inline double __longlong_as_double(long long v) {
+  double x;
+  memcpy(&x, &v, sizeof x);
+  return x;
 }
 
 // The f64 intrinsics that round once and are never contracted into an fma

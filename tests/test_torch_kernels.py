@@ -280,9 +280,11 @@ def test_kernel_sums_use_no_atomics():
 def test_sub_matmul_source_keeps_the_full_precision_contract(word):
     """csrc/sub_matmul.cu promises a full-precision product with a sum in
     one order: its code (comments stripped) names no warpgroup
-    tensor-core instruction, no TF32 conversion and no atomic.  Its one
-    tensor-core instruction is DMMA, full IEEE f64: every `mma` in the code
-    is `mma.sync.aligned.m8n8k4...f64`, and the f32 kernels name none."""
+    tensor-core instruction, no TF32 conversion and no atomic.  Its
+    tensor-core instructions are DMMA, full IEEE f64, of depth 4: every
+    `mma` in the code is `mma.sync.aligned.m8n8k4...f64` or, for the c128
+    ring kernel, `mma.sync.aligned.m16n8k4...f64` (two m8n8k4 on one B),
+    and the f32 and c64 kernels name none."""
     import re
 
     src = _c_code(REPO / "eigenexa_tpu_torch" / "csrc" / "sub_matmul.cu")
@@ -292,27 +294,64 @@ def test_sub_matmul_source_keeps_the_full_precision_contract(word):
         return
     found = re.findall(r"\w*mma[\w.]*", src)
     instr = [w for w in found if "." in w]
-    assert instr == ["mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64"]
-    assert set(found) - set(instr) == {"dmma_m8n8k4",
+    assert instr == ["mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64",
+                     "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64"]
+    assert set(found) - set(instr) == {"dmma_m8n8k4", "dmma_m16n8k4",
                                        "sub_matmul_kernel_f64_dmma"}
-    for kernel in ("sub_matmul_kernel(", "sub_matmul_kernel_f32_128("):
+    for kernel in ("sub_matmul_kernel(", "sub_matmul_kernel_f32_128(",
+                   "sub_matmul_kernel_c64(", "sub_matmul_kernel_c64_wide("):
         body = src[src.index(kernel):]
         body = body[:body.index("\n}\n")]
         assert "mma" not in body, kernel
+    ring = src[src.index("sub_matmul_kernel_c128_ring("):]
+    ring = ring[:ring.index("\n}\n")]
+    assert "dmma_m16n8k4" in ring and "dmma_m8n8k4" not in ring
 
 
-# edits of csrc/sub_matmul.cu that the emulated complex kernels must catch:
-# the conjugate of Q dropped where it is loaded
-SUB_MATMUL_MUTANTS = {"conj_dropped": ("v.y = -v.y;", "")}
+# edits of csrc/sub_matmul.cu that the emulated complex kernels must catch,
+# with the SM counts whose launch rules reach the kernels that must fail
+# (132: the 64-tile kernels at the emulator's sizes; 1: the larger-tile ones)
+SUB_MATMUL_MUTANTS = {
+    # the conjugate of Q dropped, in the one helper every kernel takes it by
+    "conj_dropped": ("imaginary ? -x : x", "x", (132, 1)),
+    # the wait that lands a slice of the c128 ring before the slice is read
+    "dropped_ring_wait": ("    cp_async_wait<kZ2Stages - 2>();\n", "",
+                          (1,)),
+}
+
+
+def _emu_async(src: str, copies: int) -> str:
+    """The inline PTX of cp.async (copies, commit, wait) and the dynamic
+    shared memory of a CUDA source rewritten into the stand-in's calls;
+    `copies` counts the copy helpers (one for each size)."""
+    import re
+
+    src, count = re.subn(
+        r'asm volatile\("cp\.async\.\w+\.shared\.global \[%0\], \[%1\], '
+        r'(\d+);\\n"\s*::\s*"r"\(smem_u32\((\w+)\)\),\s*"l"\((\w+)\)\);',
+        r"emu_cp_async(\2, \3, \1);", src)
+    assert count == copies
+    src, count = re.subn(r'asm volatile\("cp\.async\.commit_group;\\n"[^;]*;',
+                         "emu_cp_async_commit();", src)
+    assert count == 1
+    src, count = re.subn(
+        r'asm volatile\("cp\.async\.wait_group %0;\\n"\s*::\s*"n"\((\w+)\)'
+        r'[^;]*;', r"emu_cp_async_wait(\1);", src)
+    assert count == 1
+    src, count = re.subn(
+        r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
+        r"unsigned char* const \1 = emu_dynamic_smem;", src)
+    assert count == 1
+    return src
 
 
 @pytest.fixture(scope="module")
 def emu_binaries(tmp_path_factory):
     """csrc/sub_matmul.cu built by the host compiler against the stand-in
-    runtime of tests/cuda_emu: the launches and the inline PTX rewritten
-    into the stand-in's calls, with sub_matmul_main.cpp as its main; the
-    source as it is and each mutant of SUB_MATMUL_MUTANTS, compiled at
-    once."""
+    runtime of tests/cuda_emu: the launches, the inline PTX (DMMA and the
+    c128 ring's cp.async) and the dynamic shared memory rewritten into the
+    stand-in's calls, with sub_matmul_main.cpp as its main; the source as
+    it is and each mutant of SUB_MATMUL_MUTANTS, compiled at once."""
     import re
     import shutil
 
@@ -321,21 +360,29 @@ def emu_binaries(tmp_path_factory):
     emu = REPO / "tests" / "cuda_emu"
     src = (REPO / "eigenexa_tpu_torch" / "csrc" / "sub_matmul.cu").read_text()
     src, count = re.subn(
-        r"(sub_matmul_kernel\w*)<<<(\w+), kThreads, 0,\s*s>>>\(\s*",
-        r"emu_launch(\1, \2, kThreads, ", src)
-    assert count == 5                      # one launch for each kernel
+        r"(sub_matmul_kernel\w*)<<<(\w+), kThreads, (?:0|kZ2Bytes),\s*s>>>"
+        r"\(\s*", r"emu_launch(\1, \2, kThreads, ", src)
+    assert count == 7                      # one launch for each kernel
     src, count = re.subn(
-        r'asm volatile\("mma.*?:\s*"\+d"\((.+?)\),\s*"\+d"\((.+?)\)'
-        r'\s*:\s*"d"\((.+?)\),\s*"d"\((.+?)\)\);',
+        r'asm volatile\("mma\.sync\.aligned\.m8n8k4.*?:\s*"\+d"\((.+?)\),'
+        r'\s*"\+d"\((.+?)\)\s*:\s*"d"\((.+?)\),\s*"d"\((.+?)\)\);',
         r"emu_dmma_m8n8k4(\1, \2, \3, \4);", src, flags=re.S)
-    assert count == 1 and "asm" not in src
+    assert count == 1
+    src, count = re.subn(
+        r'asm volatile\("mma\.sync\.aligned\.m16n8k4.*?:\s*'
+        + r',\s*'.join([r'"\+d"\((.+?)\)'] * 4) + r'\s*:\s*'
+        + r',\s*'.join([r'"d"\((.+?)\)'] * 3) + r'\);',
+        r"emu_dmma_m16n8k4(\1, \2, \3, \4, \5, \6, \7);", src, flags=re.S)
+    assert count == 1
+    src = _emu_async(src, copies=1)
+    assert "asm" not in src
     tmp_path = tmp_path_factory.mktemp("emu")
     procs = {}
     for name in (None, *SUB_MATMUL_MUTANTS):
         text = src
         if name is not None:
-            old, new = SUB_MATMUL_MUTANTS[name]
-            assert old in text, name
+            old, new, _ = SUB_MATMUL_MUTANTS[name]
+            assert text.count(old) == 1, name
             text = text.replace(old, new)
         d = tmp_path / (name or "base")
         d.mkdir()
@@ -369,7 +416,9 @@ EMU_RUNS = {"the 128-tile kernel": ("f32", 17),
                                         (10 ** 6, "the 64-tile kernel"),
                                         (1, "the f64 DMMA kernel"),
                                         (1, "the c64 kernel"),
-                                        (1, "the c128 DMMA kernel")])
+                                        (1, "the c128 DMMA kernel"),
+                                        (10 ** 6, "the c64 kernel"),
+                                        (10 ** 6, "the c128 DMMA kernel")])
 def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
         emu_binary, sms, kernel):
     """csrc/sub_matmul.cu itself, run as fibers on a CPU thread (see
@@ -379,11 +428,13 @@ def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
     written.  In f32 the stand-in reports `sms` SMs, which sends every
     launch to one kernel of the launch rule: both give the same bits.
     Every f64 launch takes the DMMA kernel, whose inline PTX becomes the
-    stand-in's fragment exchange.  The complex kernels (c64 on the FMA
-    path, c128 through the stand-in's DMMA) give, bit for bit, the two real
-    fma chains of B − P·Qᴴ (re over pr·qr, pi·qi; im over pi·qr, −pr·qi;
-    l ascending) on a tile, ragged edges, in-place strided and offset
-    views, k = 0, 1, 5 and 130."""
+    stand-in's fragment exchange.  The complex kernels give, bit for bit,
+    the two real fma chains of B − P·Qᴴ (re over pr·qr, pi·qi; im over
+    pi·qr, −pr·qi; l ascending) on a tile, ragged edges, in-place strided
+    and offset views, k = 0, 1, 5 and 130: with 1 SM every complex launch
+    takes the larger-tile kernel of its type (c64 64×128 tiles on the FMA
+    path, c128 the cp.async ring on the stand-in's DMMA), with 10⁶ the
+    64-tile kernel."""
     arg, lines = EMU_RUNS[kernel]
     run = subprocess.run([str(emu_binary), arg],
                          capture_output=True, text=True, timeout=300,
@@ -393,17 +444,21 @@ def test_sub_matmul_source_gives_the_fma_chain_bits_on_cpu_threads(
     assert out[-1] == "ALL OK" and len(out) == lines
 
 
-@pytest.mark.parametrize("dtype", ["c64", "c128"])
-@pytest.mark.parametrize("mutant", list(SUB_MATMUL_MUTANTS))
+@pytest.mark.parametrize("mutant,dtype", [("conj_dropped", "c64"),
+                                          ("conj_dropped", "c128"),
+                                          ("dropped_ring_wait", "c128")])
 def test_complex_sub_matmul_mutants_fail_on_cpu_threads(emu_binaries,
                                                         mutant, dtype):
-    """A copy of the source with Q's conjugate dropped where it is loaded
-    fails the complex cases of both kernels."""
-    run = subprocess.run([str(emu_binaries[mutant]), dtype],
-                         capture_output=True, text=True, timeout=300,
-                         env=dict(os.environ, EMU_SMS="132"))
-    assert run.returncode != 0 and run.stdout.splitlines()[-1] == "FAIL", (
-        mutant, run.stdout)
+    """A copy of the source with Q's conjugate dropped fails the complex
+    cases of every kernel of both launch rules; one without the c128
+    ring's wait reads slices before their copies land, and fails."""
+    for sms in SUB_MATMUL_MUTANTS[mutant][2]:
+        run = subprocess.run([str(emu_binaries[mutant]), dtype],
+                             capture_output=True, text=True, timeout=300,
+                             env=dict(os.environ, EMU_SMS=str(sms)))
+        assert (run.returncode != 0
+                and run.stdout.splitlines()[-1] == "FAIL"), (
+            mutant, sms, run.stdout)
 
 
 SYMV_MUTANTS = {
@@ -430,22 +485,8 @@ def _symv_emu_source(mutant=None) -> str:
         r"(symv_\w+_kernel<[^>]*>)<<<(\w+), ([^,]+), .*?, stream>>>\(\s*",
         r"emu_launch(\1, \2, \3, ", src, flags=re.S)
     assert count == 2                      # one launch for each pass
-    src, count = re.subn(
-        r'asm volatile\("cp\.async\.\w+\.shared\.global \[%0\], \[%1\], '
-        r'(\d+);\\n"\s*::\s*"r"\(smem_u32\((\w+)\)\),\s*"l"\((\w+)\)\);',
-        r"emu_cp_async(\2, \3, \1);", src)
-    assert count == 3                      # 16-, 8- and 4-byte copies
-    src, count = re.subn(r'asm volatile\("cp\.async\.commit_group;\\n"[^;]*;',
-                         "emu_cp_async_commit();", src)
-    assert count == 1
-    src, count = re.subn(
-        r'asm volatile\("cp\.async\.wait_group %0;\\n"\s*::\s*"n"\((\w+)\)'
-        r'[^;]*;', r"emu_cp_async_wait(\1);", src)
-    assert count == 1
-    src, count = re.subn(
-        r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
-        r"unsigned char* const \1 = emu_dynamic_smem;", src)
-    assert count == 1 and "asm" not in src
+    src = _emu_async(src, copies=3)        # 16-, 8- and 4-byte copies
+    assert "asm" not in src
     return src
 
 
@@ -701,18 +742,54 @@ def test_chip_smoke_complex_kernel_phase_passes_on_the_cpu():
     """The card script's complex sub_matmul phase at small sizes on CPU
     tensors: every case, the first rolled panel in place on its strided
     view included, passes its check, and the row-block call stays within
-    the bound."""
+    the bound.  The rows name the kernel that the launch rule gives them
+    (with an H100's 132 SMs for a CPU tensor)."""
     cs = _chip_smoke()
     before = dict(tk.LAUNCHES)
     rows = cs.complex_kernel_phase(torch.device("cpu"), 256, timed=False,
-                                   block=64, ragged=(300, 277))
+                                   block=64, ragged=(300, 277), rule=130)
     assert [(r["case"], r["dtype"]) for r in rows] == [
         (case, dtype) for dtype in ("complex64", "complex128")
         for case in ("rank2k", "wy", "ragged_k5", "ragged_k130",
-                     "same_bits_rank2k")]
+                     "under_rule", "over_rule", "same_bits_rank2k")]
     assert rows[0]["m"] == 192 and rows[3]["k"] == 130
+    assert [r["m"] for r in rows[4:6]] == [129, 130]
     assert all(r["max_abs_err"] <= r["bound"] for r in rows)
+    assert {r.get("kernel") for r in rows} == {"c64", "c128", None}
+    assert rows[6]["kernels"] == ["c64", "c64"]
     assert tk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_chip_smoke_mirrors_the_complex_launch_rules(dtype):
+    """chip_smoke.COMPLEX_RULE is csrc/sub_matmul.cu's complex launch rule
+    (the tile whose count it holds against the SMs, and the factor), so the
+    card script's
+    cases land on the kernels it names: at an H100's 132 SMs the rank-2k
+    call of n = 8192 takes the larger-tile kernel, its row blocks the
+    64-tile one,
+    and the rule squares fall on either side."""
+    import re
+
+    cs = _chip_smoke()
+    src = _c_code(REPO / "eigenexa_tpu_torch" / "csrc" / "sub_matmul.cu")
+    consts = {name: int(value) for name, value in re.findall(
+        r"constexpr (?:int|long long) (\w+) = (\d+);", src)}
+    # the launch rules in source order: f32, c64, c128
+    rules = re.findall(r"fills_sms\(m, n, (\w+), (\w+), (\w+)\)", src)
+    assert len(rules) == 3
+    rule = rules[{"complex64": 1, "complex128": 2}[dtype]]
+    assert cs.COMPLEX_RULE[dtype] == tuple(consts[name] for name in rule)
+    big, small = {"complex64": ("c64_wide", "c64"),
+                  "complex128": ("c128_ring", "c128")}[dtype]
+    assert cs.complex_kernel_of(dtype, 8128, 8128, 132) == big
+    block = cs.complex_block_rows(dtype, 8128, 132)
+    assert block % 8 == 0 and block >= 64
+    assert cs.complex_kernel_of(dtype, block, 8128, 132) == small
+    assert cs.complex_kernel_of(dtype, block + 8, 8128, 132) == big
+    rule = cs.complex_rule_square(dtype, 132)
+    assert cs.complex_kernel_of(dtype, rule - 1, rule - 1, 132) == small
+    assert cs.complex_kernel_of(dtype, rule, rule, 132) == big
 
 
 def test_chip_smoke_hermitian_and_gev_phases_pass_on_the_cpu(monkeypatch):

@@ -16,10 +16,13 @@ edited.
 A variant is ``name`` (the source as it is) or ``name:CONST=VALUE[,...]``,
 which rewrites ``constexpr <type> CONST = ...;``; ``name@FILE`` takes FILE
 as the source (an older version of it, with the same entry points).
-``--replace NAME OLD NEW`` adds a variant that replaces the text OLD
-(exactly once in the source) by NEW: a deliberately broken copy, to show
-that the checks have teeth; it is expected to exit non-zero.  Name a variant twice (first and last) to see the
-run's own spread.  The full output of each variant goes to
+``--replace NAME[:CONST=VALUE,...] OLD NEW`` adds a variant that replaces
+the text OLD (exactly once in the source) by NEW, with the constants
+rewritten too; ``--replace`` again with the same NAME adds a replacement to
+that variant.  A deliberately broken copy shows that the checks have teeth
+(it is expected to exit non-zero); a copy with a part taken out, timed by a
+sweep, shows what that part costs.  Name a variant twice (first and last)
+to see the run's own spread.  The full output of each variant goes to
 ``<out>/variant_<position>_<name>.txt``; ``--out DIR`` before the variants
 names the directory (default ``build/variants``).
 
@@ -33,9 +36,19 @@ such batches, so that the host's launch overhead does not hide a kernel of
 (``=100000``) it shows where the launch rule should cross.  ``--sweep64``
 does the same over f64 squares m = 1024 ... 16384; it checks nothing, so
 it also times copies that leave out a part of the kernel on purpose.
-``--sweep-sturm`` (with ``--source sturm.cu``) times ``sturm_bisect`` at
-Frank n = 8192, bisection and refinement, band 1 and 2, and prints a
-digest of each result's bits, which all correct variants share:
+``--sweep-complex`` times c64 and c128 squares m = 64 ... 8192 at k = 128
+in place the same way, beside ``torch.addmm(b, p, q.conj().T, alpha=-1)``,
+each also as ``graph_ms``: 20 calls captured in a CUDA graph and replayed
+(median of 7), the card's time without the host's, which below m = 1024
+hides the kernel in ``ms``; with a digest of one call's bits, and at the
+largest the SM clock and the power drawn under each (``nvidia-smi``); with
+one variant that sends every complex launch to the larger-tile kernels
+(``kC2TilesPerSm=0,kZ2TilesPerSm=0``) and one that sends none
+(``=100000``) it places the complex launch rules, and the digests show
+that both kernels of a type give the same bits.  ``--sweep-sturm`` (with
+``--source sturm.cu``) times ``sturm_bisect`` at Frank n = 8192,
+bisection and refinement, band 1 and 2, and prints a digest of each
+result's bits, which all correct variants share:
 
     python3 tools/kernel_variants.py --sweep-sturm --source sturm.cu \\
         old@build/sturm_old.cu L2:kLevelsBand1=2,kLevelsBand2=2 base
@@ -76,6 +89,81 @@ for m in SIZES:
     print(f"sweep {DTYPE} m={m} tiles128={tiles} "
           f"ms={statistics.median(times):.5f} min={min(times):.5f}",
           flush=True)
+"""
+# complex squares at k = 128, after what ptxas reports for the source:
+# first the bits of one call out of place (a digest, which every correct
+# variant shares: the kernels of a launch rule give the same bits), then in
+# place as SWEEP times, and torch.addmm on the same operands (the library's
+# time, alike in every variant)
+COMPLEX_SWEEP = """
+import hashlib, statistics, subprocess, torch
+from eigenexa_tpu_torch.ops import _build, kernels
+dev = torch.device("cuda", 0)
+print(_build.resource_usage(("sub_matmul.cu",)), flush=True)
+def device_ms(fn):
+    fn()
+    times = []
+    for _ in range(7):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(50):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 50)
+    return statistics.median(times)
+def graph_ms(fn, reps=20):
+    # the same calls captured in a CUDA graph: the card's time without the
+    # host's, which hides small launches in device_ms
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(7):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+for dtype in (torch.complex64, torch.complex128):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for m in SIZES:
+        b, p, q = (torch.randn(m, c, generator=gen, device=dev, dtype=dtype)
+                   * 1e-3 for c in (m, 128, 128))
+        bits = kernels.sub_matmul(b, p, q)
+        sha = hashlib.sha256(
+            torch.view_as_real(bits).cpu().numpy().tobytes()).hexdigest()
+        del bits
+        ms = device_ms(lambda: kernels.sub_matmul(b, p, q, out=b))
+        lib = device_ms(lambda: torch.addmm(b, p, q.conj().T, alpha=-1,
+                                            out=b))
+        graph = graph_ms(lambda: kernels.sub_matmul(b, p, q, out=b))
+        lib_graph = graph_ms(lambda: torch.addmm(b, p, q.conj().T,
+                                                 alpha=-1, out=b))
+        clocks = ""
+        if m == SIZES[-1]:
+            # the SM clock and the power drawn while a second of the kernel
+            # (then of the library call) is queued, so that the reading
+            # falls inside it
+            for name, fn, t in (("kernel", lambda: kernels.sub_matmul(
+                    b, p, q, out=b), ms), ("addmm", lambda: torch.addmm(
+                    b, p, q.conj().T, alpha=-1, out=b), lib)):
+                for _ in range(int(1000 / t)):
+                    fn()
+                clocks += f" {name}_clock_power=" + subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True).stdout.strip().replace(" ", "")
+                torch.cuda.synchronize()
+        print(f"sweep {dtype} m={m} ms={ms:.5f} addmm_ms={lib:.5f} "
+              f"graph_ms={graph:.5f} addmm_graph_ms={lib_graph:.5f} "
+              f"sha={sha[:16]}{clocks}", flush=True)
 """
 # sturm_bisect on the bands of Frank n's reductions, the operands of modes N
 # and X: bisection (70 steps) and refinement (45 and the valid check, w0 the
@@ -122,6 +210,9 @@ SWEEP_SIZES = {
     "--sweep": ("torch.float32", (512, 768, 1024, 1280, 1536, 1792, 2048,
                                   2304, 2560, 3072, 4096)),
     "--sweep64": ("torch.float64", (1024, 2048, 4096, 8192, 16384)),
+    "--sweep-complex": (None, (64, 128, 192, 256, 384, 512, 576, 640, 704,
+                               768, 896, 1024, 1280, 1536, 2048, 3072, 4096,
+                               8128, 8192)),
 }
 
 
@@ -131,8 +222,7 @@ def _edited(text: str, consts: dict, replace) -> str:
             rf"(constexpr [\w ]+ {name} = )[^;]+;", rf"\g<1>{value};", text)
         if count != 1:
             raise SystemExit(f"constant {name}: {count} definitions found")
-    if replace is not None:
-        old, new = replace
+    for old, new in replace or ():
         if text.count(old) != 1:
             raise SystemExit(f"text {old!r} occurs {text.count(old)} times")
         text = text.replace(old, new)
@@ -154,6 +244,9 @@ def _run_variant(position: int, name: str, consts: dict, replace, path,
             command = ["-c", f"DEV = 'cuda'\nN = 8192\n"
                        f"BANDS = {str(work / 'sturm_bands.pt')!r}\n"
                        f"{STURM_SWEEP}"]
+        elif sweep == "--sweep-complex":
+            command = ["-c", f"SIZES = {SWEEP_SIZES[sweep][1]}\n"
+                       f"{COMPLEX_SWEEP}"]
         elif sweep:
             dtype, sizes = SWEEP_SIZES[sweep]
             command = ["-c", f"import torch\nDTYPE = {dtype}\n"
@@ -185,9 +278,10 @@ def _print_summary(stdout: str, source: str) -> None:
             in_source = source in line
         if in_source and "Used" in line and "registers" in line:
             kernel = re.search(
-                r"(sub_matmul|symv|sturm_bisect)_\w*kernel\w*", lines[i - 2])
+                r"(?<=\d)(sub_matmul_kernel|symv_\w*?kernel|sturm_bisect_"
+                r"kernel)\w*?(?=E)", lines[i - 2])
             spill = lines[i - 1].strip()
-            print(f"  {kernel.group(0)[:36] if kernel else '?'}: "
+            print(f"  {kernel.group(0)[:40] if kernel else '?'}: "
                   f"{line.split(':', 1)[1].strip()}; {spill}")
         if line.startswith("kernel "):
             row = json.loads(line[len("kernel "):])
@@ -206,6 +300,7 @@ def main(argv) -> int:
     variants = []
     args = list(argv)
     sweep = (args.pop(0) if args[:1] in (["--sweep"], ["--sweep64"],
+                                         ["--sweep-complex"],
                                          ["--sweep-sturm"]) else None)
     source = "sub_matmul.cu"
     if args[:1] == ["--source"]:
@@ -220,8 +315,15 @@ def main(argv) -> int:
     while args:
         arg = args.pop(0)
         if arg == "--replace":
-            name, old, new = args.pop(0), args.pop(0), args.pop(0)
-            variants.append((name, {}, (old, new), None))
+            spec, old, new = args.pop(0), args.pop(0), args.pop(0)
+            name, _, consts = spec.partition(":")
+            same = [v for v in variants if v[0] == name and v[2]]
+            if same:
+                same[0][2].append((old, new))
+            else:
+                variants.append((name, dict(
+                    item.split("=", 1) for item in consts.split(",")
+                    if item), [(old, new)], None))
             continue
         name, _, spec = arg.partition(":")
         name, _, path = name.partition("@")
