@@ -91,7 +91,21 @@ result line:
               (linspace(1, 2, n))``: mode A cold and warm (gev_residual,
               b_orthogonality, bitwise equal, 2 × 191 ``sub_matmul``
               launches, the stage split), mode N within the strict w_test
-              of mode A's w with one ``sturm_bisect`` launch.
+              of mode A's w with one ``sturm_bisect`` launch;
+11. large   — Frank n = 32768 f32 through the memory rule ("auto", which
+              prints the reduction it chose and the free memory it read):
+              ``eigen_s`` twice (bitwise equal) and ``eigen_sx`` once, each
+              with residual, orthogonality (Z in blocks of 4096 columns)
+              and w_scaled, the stage split, the peak device memory and
+              the launches of the chosen reduction; then
+              ``torch.linalg.eigh`` at n = 16384 and 32768 f32 in a child
+              process, timed and not gated.  Where the rule chose the
+              windowed reduction, ``symv_lower`` and
+              ``rank2k_update_window`` at that path's first column and
+              panel follow.  The kernel phases hold ``sub_matmul`` at this
+              path's f32 shapes too (rank-2k 32704²×128, WY 32768²×128).
+              The windowed phase and ``sx`` hold their n = 16384 peaks
+              below those of the D&C before its top merges were chunked.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The last three lines are the kernels JSON object, the
@@ -109,8 +123,9 @@ Two more modes take findings, check nothing, and print no result line:
 ``python3 chip_smoke.py --findings`` runs, after the build, ``compare``
 (the reduction alone, ``mode="C"``, at n = 8192, rolled and windowed in
 turns, and ``tridiagonalize`` alone on a donated working matrix) and
-``memory`` (the whole-solve peak device memory of both reductions at
-n = 8192 and 16384).
+``memory`` (the whole-solve peak device memory of both reductions of
+``eigen_s`` and ``eigen_sx`` at n = 8192, 16384 and 32768: the constants
+of the memory rule, ``householder.PEAK_N2`` and ``PEAK_MERGE``).
 
 ``python3 chip_smoke.py --trd-profile N`` profiles one reduction of each
 implementation and each driver (``eigen_s``'s TRD-BLK, ``eigen_sx``'s
@@ -129,22 +144,28 @@ import time
 N_SLICE = 8192
 N_F64 = 8192
 N_WINDOWED = 16384
+N_LARGE = 32768
+CHECK_CHUNK = 4096   # Z's columns a block in the checks at N_LARGE
+# the whole-solve peaks above the resident input at n = 16384 f32 of the
+# windowed eigen_s and eigen_sx while the D&C built its top merge whole
+# (PERF.md § 5)
+UNCHUNKED_PEAK = {"eigen_s": 19_062_710_272, "eigen_sx": 21_211_858_944}
 NB_F = 64     # SolverConfig.panel_forward
 NB_B = 128    # SolverConfig.panel_backward
 KERNELS = {
     "sub_matmul": {
         "source": "eigenexa_tpu_torch/csrc/sub_matmul.cu",
-        "replaces": "eigenexa_tpu/ops/pallas_kernels.py:99",
+        "replaces": "eigenexa_tpu/ops/pallas_kernels.py:100",
         # the c64 and c128 entry points: complex never reached the Pallas
         # kernel, whose eligibility rule sent it to b - p @ conj(q).T
         "replaces_complex": "eigenexa_tpu/ops/pallas_kernels.py:133 "
                             "(_shape_eligible: complex took the jnp form)"},
     "symv_lower": {
         "source": "eigenexa_tpu_torch/csrc/symv_lower.cu",
-        "replaces": "eigenexa_tpu/ops/pallas_kernels.py:211"},
+        "replaces": "eigenexa_tpu/ops/pallas_kernels.py:212"},
     "rank2k_update_window": {
         "source": "eigenexa_tpu_torch/csrc/sub_matmul.cu",
-        "replaces": "eigenexa_tpu/ops/pallas_kernels.py:335"},
+        "replaces": "eigenexa_tpu/ops/pallas_kernels.py:337"},
     # no TPU kernel: the JAX package's Sturm recurrence is a lax.scan
     # (band 2: sturm.py:145) inside lax.fori_loop, one XLA program
     "sturm_bisect": {
@@ -434,6 +455,18 @@ def kernel_phase(device, n_main: int, timed: bool, n_win: int = N_WINDOWED,
             for case in kernel_cases(n_main, n_win, **sizes)]
 
 
+def large_kernel_phase(device, n: int = N_LARGE):
+    """sub_matmul at the n-sized path's own f32 shapes (the first rolled
+    rank-2k panel and a WY block), against its plain version, with bound
+    and library times."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(5678)
+    return [_kernel_case(device, gen, torch.float32, True, *case)
+            for case in (("rank2k_large", n - 64, n - 64, 128, None),
+                         ("wy_large", n, n, 128, None))]
+
+
 # The complex launch rules of csrc/sub_matmul.cu: (tile rows, tile
 # columns, tiles an SM).  A launch with at least that many tiles for each
 # SM takes the larger-tile kernel of its type (c64 64 x 128 on the FMA
@@ -672,21 +705,23 @@ def symv_cases(m_main: int, m_f64: int):
             "float64": f64}
 
 
-def symv_phase(device, m_main: int, timed: bool, m_f64: int = N_F64):
+def symv_phase(device, m_main: int, timed: bool, m_f64: int = N_F64,
+               cases=None):
     """Compare symv_lower with its plain version on a matrix whose upper
     triangle is garbage; returns one result row per (case, dtype).  A fused
     case hands it a panel [U | W] of NB_F columns a half, NB_F − 1 of them
     filled (the last column of a panel) and zero above the window, as the
     windowed column does.  The first call makes its own workspace, the
     second reuses one that the timed calls reuse too: the two must give
-    the same bits."""
+    the same bits.  ``cases`` replaces :func:`symv_cases`."""
     import torch
     from eigenexa_tpu_torch.ops import kernels
 
     rows = []
     gen = torch.Generator(device=device).manual_seed(4321)
+    cases = cases or symv_cases(m_main, m_f64)
     for dtype in (torch.float32, torch.float64):
-        for label, m, t0, nc, fused in symv_cases(m_main, m_f64)[_name(dtype)]:
+        for label, m, t0, nc, fused in cases.get(_name(dtype), ()):
             w0 = t0 * kernels.WIN_TM
             if w0 >= m:
                 raise AssertionError(f"case {label}: window outside m={m}")
@@ -767,17 +802,19 @@ def rank2k_window_cases(m_main: int, m_f64: int):
 
 
 def rank2k_window_phase(device, m_main: int, timed: bool,
-                        m_f64: int = N_F64):
+                        m_f64: int = N_F64, cases=None):
     """Compare rank2k_update_window with its plain version; returns one
-    result row per (case, dtype)."""
+    result row per (case, dtype).  ``cases`` replaces
+    :func:`rank2k_window_cases`."""
     import torch
     from eigenexa_tpu_torch.ops import kernels
 
     rows = []
     nb = NB_F
     gen = torch.Generator(device=device).manual_seed(2143)
+    cases = cases or rank2k_window_cases(m_main, m_f64)
     for dtype in (torch.float32, torch.float64):
-        for label, m, t0 in rank2k_window_cases(m_main, m_f64)[_name(dtype)]:
+        for label, m, t0 in cases.get(_name(dtype), ()):
             w0 = t0 * kernels.WIN_TM
             if w0 >= m:
                 raise AssertionError(f"case {label}: window outside m={m}")
@@ -919,9 +956,10 @@ def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
     return rows
 
 
-def _check_solution(label, a, w, z, w_true, others):
-    """Shapes, finiteness, the reference's three checks, and bitwise
-    equality with the solves in `others` ({name: (w, z)})."""
+def _check_solution(label, a, w, z, w_true, others, col_chunk: int = 0):
+    """Shapes, finiteness, the reference's three checks (Z streamed in
+    blocks of `col_chunk` columns where it is not 0), and bitwise equality
+    with the solves in `others` ({name: (w, z)})."""
     import torch
     from eigenexa_tpu_torch.testing import (eigenvalue_check_scaled,
                                             orthogonality_check,
@@ -933,8 +971,8 @@ def _check_solution(label, a, w, z, w_true, others):
                              f"{z.shape} {z.dtype}")
     if not bool(torch.isfinite(w).all() & torch.isfinite(z).all()):
         raise AssertionError("non-finite eigenpairs")
-    res = residual_check(a, z, w)
-    orth = orthogonality_check(z)
+    res = residual_check(a, z, w, col_chunk=col_chunk)
+    orth = orthogonality_check(z, col_chunk=col_chunk)
     wsc = eigenvalue_check_scaled(w.to(a.dtype), w_true)
     same = {name: bool(torch.equal(w, wo) and torch.equal(z, zo))
             for name, (wo, zo) in others.items()}
@@ -1097,6 +1135,9 @@ def windowed_phase(device, n: int):
                            {"cold": (w1, z1)})
     if not same["cold"]:
         raise AssertionError("windowed: cold and warm solves differ")
+    if n == N_WINDOWED and peak >= UNCHUNKED_PEAK["eigen_s"]:
+        raise AssertionError(f"windowed: peak {peak} bytes is not below the "
+                             f"unchunked D&C's {UNCHUNKED_PEAK['eigen_s']}")
     return counts[0], peak
 
 
@@ -1126,7 +1167,7 @@ def _solve_sx(device, a, impl: str, label: str, want: dict,
                                          flush=True))
     if counts != want:
         raise AssertionError(f"sx {label}: launch counts {counts} != {want}")
-    return w, z, counts
+    return w, z, counts, peak
 
 
 def sx_phase(device, n: int = N_SLICE, n_large: int = N_WINDOWED):
@@ -1141,30 +1182,36 @@ def sx_phase(device, n: int = N_SLICE, n_large: int = N_WINDOWED):
     rolled, windowed = (expected_launches_sx(n, w) for w in (False, True))
     a = frank(n, torch.float32, device)
     w_true = frank_spectrum(n, torch.float64)
-    w1, z1, counts = _solve_sx(device, a, "rolled", f"n={n} f32 rolled",
-                               rolled, profile=False)
-    w2, z2, _ = _solve_sx(device, a, "rolled", f"n={n} f32 rolled rerun",
-                          rolled)
+    w1, z1, counts, _ = _solve_sx(device, a, "rolled", f"n={n} f32 rolled",
+                                  rolled, profile=False)
+    w2, z2, _, _ = _solve_sx(device, a, "rolled",
+                             f"n={n} f32 rolled rerun", rolled)
     same = _check_solution("sx f32 rolled", a, w2, z2, w_true,
                            {"first": (w1, z1)})
     if not same["first"]:
         raise AssertionError("sx: the rolled reruns differ")
     del w1, z1, w2, z2
-    w, z, counts_win = _solve_sx(device, a, "windowed",
-                                 f"n={n} f32 windowed", windowed)
+    w, z, counts_win, _ = _solve_sx(device, a, "windowed",
+                                    f"n={n} f32 windowed", windowed)
     _check_solution("sx f32 windowed", a, w, z, w_true, {})
     del a, w, z
     a = frank(n, torch.float64, device)
-    w, z, _ = _solve_sx(device, a, "rolled", f"n={n} f64 rolled", rolled)
+    w, z, _, _ = _solve_sx(device, a, "rolled", f"n={n} f64 rolled",
+                           rolled)
     _check_f64("sx f64 rolled", a, w, z,
                frank_spectrum(n, torch.float64, device))
     del a, w, z
     _empty_cache(device)
     a = frank(n_large, torch.float32, device)
-    w, z, _ = _solve_sx(device, a, "windowed", f"n={n_large} f32 windowed",
-                        expected_launches_sx(n_large, True))
+    w, z, _, peak = _solve_sx(device, a, "windowed",
+                              f"n={n_large} f32 windowed",
+                              expected_launches_sx(n_large, True))
     _check_solution("sx f32 windowed large", a, w, z,
                     frank_spectrum(n_large, torch.float64), {})
+    if n_large == N_WINDOWED and peak >= UNCHUNKED_PEAK["eigen_sx"]:
+        raise AssertionError(f"sx: peak {peak} bytes at n={n_large} is not "
+                             f"below the unchunked D&C's "
+                             f"{UNCHUNKED_PEAK['eigen_sx']}")
     del a, w, z
     _empty_cache(device)
     return counts, counts_win
@@ -1480,10 +1527,141 @@ def gev_phase(device, n: int = N_F64):
     return counts[0], counts_n
 
 
-def _solve_with(device, a, impl: str, mode: str) -> dict:
-    """One profiled eigen_s with the reduction forced to `impl`: seconds,
-    the TRD-BLK stage, and the peak device memory above what was resident
-    before it (the input included in what was resident)."""
+def _solve_large(device, drive, a, label: str, want_of):
+    """One profiled solve through the memory rule ("auto"): prints the
+    reduction the rule chose and the free memory it read, the stage split,
+    the peak device memory above the resident input and the launches
+    against ``want_of(impl)``.  Returns (w, z, impl, counts)."""
+    from eigenexa_tpu_torch.ops import householder, kernels
+
+    seen = {"free": None}
+    free_bytes, auto_impl = householder._free_bytes, householder._auto_impl
+
+    def read_free(dev):
+        seen["free"] = free_bytes(dev)
+        return seen["free"]
+
+    def choose(x, band):
+        seen["impl"] = auto_impl(x, band)
+        return seen["impl"]
+
+    householder._free_bytes, householder._auto_impl = read_free, choose
+    try:
+        _reset_launches(kernels)
+        resident = _mem_mark(device)
+        w, z, info = drive(a, profile=True)
+        peak = _mem_peak(device, resident)
+        counts = _take_launches(kernels)
+    finally:
+        householder._free_bytes, householder._auto_impl = free_bytes, \
+            auto_impl
+    free, impl = seen["free"], seen["impl"]
+    want = want_of(impl)
+    print(f"large: {label} {info.elapsed:.4f} s = {info.gflops:.2f} "
+          f"GFLOP/s; the rule read {free} bytes free and chose {impl}; "
+          f"peak device memory above the resident {resident} bytes: {peak} "
+          f"bytes; launches {json.dumps(counts)} (expected "
+          f"{json.dumps(want)})", flush=True)
+    info.stage_report(lambda line: print(f"large {label} stage" + line,
+                                         flush=True))
+    if counts != want:
+        raise AssertionError(f"large {label}: launch counts {counts}")
+    return w, z, impl, counts
+
+
+# torch.linalg.eigh in a process of its own: timed, not gated, and a fault
+# of the library at a size it has not been run at cannot reach this one
+EIGH_SCRIPT = """
+import json, sys, time, torch
+from eigenexa_tpu_torch.testing import frank
+dev = torch.device("cuda", 0)
+torch.linalg.eigh(frank(256, torch.float32, dev))
+for n in map(int, sys.argv[1:]):
+    a = frank(n, torch.float32, dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    try:
+        w, v = torch.linalg.eigh(a)
+        torch.cuda.synchronize(dev)
+        out = {"seconds": time.perf_counter() - t0,
+               "finite": bool(torch.isfinite(w).all()
+                              & torch.isfinite(v).all())}
+        del w, v
+    except RuntimeError as err:
+        out = {"error": str(err)[:300]}
+    print("eigh", json.dumps({"n": n, "dtype": "float32", **out}),
+          flush=True)
+    del a
+    torch.cuda.empty_cache()
+"""
+
+
+def eigh_times(sizes) -> None:
+    """``torch.linalg.eigh`` on Frank f32 at each size, one call each after
+    a small warm-up, in a child process; printed, never gated."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        out = subprocess.run([sys.executable, "-c", EIGH_SCRIPT,
+                              *map(str, sizes)], cwd=here, timeout=400,
+                             capture_output=True, text=True)
+        lines = out.stdout.splitlines() + [
+            f"exit {out.returncode} {out.stderr[-300:]!r}"] * bool(
+                out.returncode)
+    except subprocess.TimeoutExpired:
+        lines = ["timed out after 400 s"]
+    for line in lines:
+        print(f"large: {line}", flush=True)
+
+
+def large_phase(device, n: int = N_LARGE, eigh_sizes=(N_WINDOWED, N_LARGE)):
+    """Frank n f32 through the memory rule ("auto"): eigen_s twice (the
+    second bitwise equal to the first) and eigen_sx once, each with the
+    checks (Z streamed in blocks of CHECK_CHUNK columns), the stage split,
+    the peak device memory and the launches of the reduction the rule
+    chose; then ``torch.linalg.eigh`` at `eigh_sizes`, timed.  Returns the
+    launches of the first eigen_s and of the eigen_sx, and the reductions
+    chosen."""
+    import torch
+    from eigenexa_tpu_torch import eigen_s, eigen_sx
+    from eigenexa_tpu_torch.testing import frank, frank_spectrum
+
+    a = frank(n, torch.float32, device)
+    w_true = frank_spectrum(n, torch.float64)
+
+    def want_s(impl):
+        return (expected_launches_windowed(n) if impl == "windowed"
+                else _want(sub_matmul=expected_launches(n)))
+
+    w1, z1, impl_s, counts_s = _solve_large(device, eigen_s, a,
+                                            f"eigen_s n={n} f32", want_s)
+    _check_solution("large eigen_s", a, w1, z1, w_true, {},
+                    col_chunk=CHECK_CHUNK)
+    w2, z2, _, _ = _solve_large(device, eigen_s, a,
+                                f"eigen_s n={n} f32 rerun", want_s)
+    same = bool(torch.equal(w1, w2) and torch.equal(z1, z2))
+    print(f"large: eigen_s n={n} rerun bitwise equal to the first: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("large: the eigen_s reruns differ")
+    del w1, z1, w2, z2
+    _empty_cache(device)
+    w, z, impl_sx, counts_sx = _solve_large(
+        device, eigen_sx, a, f"eigen_sx n={n} f32",
+        lambda impl: expected_launches_sx(n, impl == "windowed"))
+    _check_solution("large eigen_sx", a, w, z, w_true, {},
+                    col_chunk=CHECK_CHUNK)
+    del a, w, z
+    _empty_cache(device)
+    if eigh_sizes:
+        eigh_times(eigh_sizes)
+    return counts_s, counts_sx, {"eigen_s": impl_s, "eigen_sx": impl_sx}
+
+
+def _solve_with(device, a, impl: str, mode: str, drive=None) -> dict:
+    """One profiled solve (eigen_s unless `drive` names another driver)
+    with the reduction forced to `impl`: seconds, the stage split, and the
+    peak device memory above what was resident before it (the input
+    included in what was resident)."""
     from eigenexa_tpu_torch import eigen_s
     from eigenexa_tpu_torch.ops import householder
 
@@ -1491,12 +1669,13 @@ def _solve_with(device, a, impl: str, mode: str) -> dict:
     householder.TRD_IMPL = impl
     try:
         resident = _mem_mark(device)
-        w, _, info = eigen_s(a, mode=mode, profile=True)
+        w, _, info = (drive or eigen_s)(a, mode=mode, profile=True)
         peak = _mem_peak(device, resident)
     finally:
         householder.TRD_IMPL = old
     return {"elapsed_s": info.elapsed,
-            "trd_blk_s": info.stages["TRD-BLK"]["seconds"],
+            **{f"{name}_s": row["seconds"]
+               for name, row in info.stages.items()},
             "peak_bytes_above_resident": peak, "w_sum": float(w.sum())}
 
 
@@ -1535,30 +1714,39 @@ def compare_phase(device, n: int):
     return out
 
 
-def memory_phase(device):
-    """Whole-solve (mode A) peak device memory of both implementations at
-    both sizes, f32.  Prints bytes above the
-    resident input and, with the input added, the peak in units of n²·4
-    bytes — the constant a rolled-vs-windowed memory rule would need."""
+def memory_phase(device, sizes=(N_SLICE, N_WINDOWED, N_LARGE)):
+    """Whole-solve (mode A) peak device memory of both reductions of both
+    drivers at each size, f32.  Prints bytes above the resident input and
+    two constants a size: the peak with the input in n²·4 bytes, and the
+    peak above what is in use when the reduction starts (the input and
+    the scaled working matrix) in n²·4 bytes — the frame of
+    ``householder.PEAK_N2`` and ``PEAK_MERGE``."""
     import torch
+    from eigenexa_tpu_torch import eigen_sx
     from eigenexa_tpu_torch.testing import frank
 
     peaks = {}
-    for impl, n in (("rolled", N_SLICE), ("windowed", N_SLICE),
-                    ("rolled", N_WINDOWED), ("windowed", N_WINDOWED)):
-        a = frank(n, torch.float32, device)
-        run = _solve_with(device, a, impl, "A")
-        peaks[f"{impl}_{n}"] = run["peak_bytes_above_resident"]
-        print(f"memory: {impl} n={n} whole solve {run}", flush=True)
-        del a
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-    units = {key: (peak + int(key.split("_")[1]) ** 2 * 4)
-             / (int(key.split("_")[1]) ** 2 * 4)
-             for key, peak in peaks.items()}
+    for driver in ("eigen_s", "eigen_sx"):
+        for n in sizes:
+            a = frank(n, torch.float32, device)
+            for impl in ("rolled", "windowed"):
+                run = _solve_with(device, a, impl, "A",
+                                  eigen_sx if driver == "eigen_sx" else None)
+                peaks[f"{driver}_{impl}_{n}"] = (
+                    run["peak_bytes_above_resident"], n)
+                print(f"memory: {driver} {impl} n={n} whole solve {run}",
+                      flush=True)
+            del a
+            _empty_cache(device)
+    with_input = {key: (peak + n * n * 4) / (n * n * 4)
+                  for key, (peak, n) in peaks.items()}
+    at_reduction = {key: (peak - n * n * 4) / (n * n * 4)
+                    for key, (peak, n) in peaks.items()}
     print(f"memory: whole-solve peak above the resident input, bytes: "
-          f"{json.dumps(peaks)}; with the input, in n^2*4 bytes: "
-          f"{json.dumps(units)}", flush=True)
+          f"{json.dumps({k: p for k, (p, _) in peaks.items()})}; with the "
+          f"input, in n^2*4 bytes: {json.dumps(with_input)}; above the "
+          f"input and the working matrix, in n^2*4 bytes: "
+          f"{json.dumps(at_reduction)}", flush=True)
     return peaks
 
 
@@ -1614,12 +1802,31 @@ def trd_profile(device, n: int) -> None:
         householder.TRD_IMPL = old
 
 
-def _kernels_line(rows, launches, complex_launches) -> dict:
+def large_window_kernels(device, chosen: dict, m: int = N_LARGE,
+                         timed: bool = True):
+    """Where the memory rule chose the windowed reduction at m, its kernels
+    at that path's first column and panel, f32: ``symv_lower`` fused
+    (eigen_s) or nc = 2 (eigen_sx), and ``rank2k_update_window``."""
+    symv = ([("large_fused_first_column", m, 0, 1, True)]
+            * (chosen["eigen_s"] == "windowed")
+            + [("large_sx_pair_first", m, 0, 2, False)]
+            * (chosen["eigen_sx"] == "windowed"))
+    if not symv:
+        return []
+    return (symv_phase(device, m, timed, cases={"float32": symv})
+            + rank2k_window_phase(device, m, timed, cases={
+                "float32": [("large_first_panel", m, 0)]}))
+
+
+def _kernels_line(rows, launches, complex_launches,
+                  large_launches: int) -> dict:
     """One entry per kernel at its shape on the f32 windowed path, with an
     ``f64`` object of the same kernel at its shape on the f64 windowed
     path, and for ``sub_matmul`` ``c64`` and ``c128`` objects at the
     Hermitian path's first rolled panel with their launches in one eigen_h
-    solve (`complex_launches`); ``sturm_bisect`` (f64 only) at its band-1
+    solve (`complex_launches`) and an ``n32768`` object at the n = 32768
+    path's two f32 shapes with the launches of that eigen_s solve
+    (`large_launches`); ``sturm_bisect`` (f64 only) at its band-1
     bisection of n = 8192, its plain time at n = 1024, with a ``band2``
     object of the band-2 bisection."""
     main_case = {"sub_matmul": ("wy_windowed_path", "wy"),
@@ -1644,6 +1851,13 @@ def _kernels_line(rows, launches, complex_launches) -> dict:
                  "launches": launches[name], **{k: row[k] for k in keys},
                  "f64": {k: row64[k] for k in f64_keys}}
         if name == "sub_matmul":
+            entry["n32768"] = {
+                short: {"launches": large_launches,
+                        **{k: r[k] for k in keys},
+                        **{k: r[k] for k in ("m", "n", "k")}}
+                for short, case in (("rank2k", "rank2k_large"),
+                                    ("wy", "wy_large"))
+                for r in rows if r["name"] == name and r["case"] == case}
             for short, dtype in (("c64", "complex64"),
                                  ("c128", "complex128")):
                 crow = next(r for r in rows if r["name"] == name
@@ -1706,6 +1920,7 @@ def main() -> int:
     # --kernels NAME ...: the phases of the named kernels only
     names = set(sys.argv[2:] if only_kernels else ()) or set(KERNELS)
     phases = (("sub_matmul", "sub_matmul", kernel_phase, (N_SLICE, True)),
+              ("sub_matmul large", "sub_matmul", large_kernel_phase, ()),
               ("same_bits", "sub_matmul", same_bits_phase, ()),
               ("sub_matmul complex", "sub_matmul", complex_kernel_phase,
                (N_SLICE, True)),
@@ -1732,11 +1947,15 @@ def main() -> int:
     modes = _timed_phase("modes", modes_phase, device)
     herm64, herm128 = _timed_phase("hermitian", hermitian_phase, device)
     gev, gev_n = _timed_phase("gev", gev_phase, device)
+    large_s, large_sx, chosen = _timed_phase("large", large_phase, device)
+    rows += _timed_phase("kernels at the large windowed path",
+                         large_window_kernels, device, chosen)
     paths = (("rolled", rolled), ("windowed", windowed),
              ("f64 rolled", rolled64), ("f64 windowed", windowed64),
              ("sx rolled", sx_rolled), ("sx windowed", sx_windowed),
              ("modes N and X", modes), ("hermitian c64", herm64),
-             ("hermitian c128", herm128), ("gev", gev), ("gev N", gev_n))
+             ("hermitian c128", herm128), ("gev", gev), ("gev N", gev_n),
+             ("large eigen_s", large_s), ("large eigen_sx", large_sx))
     for path, counts in paths:
         print(f"launches on the {path} path: {json.dumps(counts)}",
               flush=True)
@@ -1750,7 +1969,8 @@ def main() -> int:
     print(json.dumps(_kernels_line(rows, {**windowed, "sturm_bisect":
                                           modes["sturm_bisect"]},
                                    {"c64": herm64["sub_matmul"],
-                                    "c128": herm128["sub_matmul"]})))
+                                    "c128": herm128["sub_matmul"]},
+                                   large_s["sub_matmul"])))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

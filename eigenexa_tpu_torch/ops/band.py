@@ -278,7 +278,8 @@ def band2_reduce(a: torch.Tensor, nb: int = 64, impl: str = "auto",
     """Reduce symmetric A (n×n) to pentadiagonal P = Qᵀ·A·Q (reference:
     src/eigen_prd.F:80).  ``nb`` is forced even.  ``impl`` is "rolled",
     "windowed" or "auto", which follows ``householder.TRD_IMPL`` and, if
-    that is "auto" too, is rolled.  With ``donate=True`` ``a`` is the
+    that is "auto" too, the memory rule with eigen_sx's constants
+    (``householder._auto_impl``).  With ``donate=True`` ``a`` is the
     working matrix and is destroyed; the windowed path returns it as v."""
     if a.is_complex():
         raise NotImplementedError("band2_reduce: real symmetric input "
@@ -287,7 +288,7 @@ def band2_reduce(a: torch.Tensor, nb: int = 64, impl: str = "auto",
     if impl == "auto":
         impl = hh.TRD_IMPL
     if impl == "auto":
-        impl = "rolled"
+        impl = hh._auto_impl(a, band=2)
     if impl not in ("rolled", "windowed"):
         raise ValueError(f"band2_reduce: unknown impl {impl!r}")
     work = a if donate else a.clone(memory_format=torch.contiguous_format)

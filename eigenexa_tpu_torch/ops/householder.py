@@ -46,13 +46,27 @@ from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
                                             rank2k_update_window, symv_lower,
                                             symv_workspace, wy_apply)
 
-# dispatch override for tridiagonalize(impl="auto"), settable by assignment:
-# "rolled" / "windowed" force; "auto" is rolled.  No memory rule picks the
-# windowed path yet: the D&C top merge sets the peak of the whole solve
-# (18.76·n²·4 bytes in f32, the input included, through either reduction;
-# NVIDIA H100 80GB HBM3, ``chip_smoke.py --findings``), so where the rolled
-# solve does not fit the windowed one does not either.
+# dispatch override for tridiagonalize(impl="auto") and band2_reduce,
+# settable by assignment: "rolled" / "windowed" force; "auto" takes the
+# memory rule (_auto_impl) on a real CUDA tensor and is rolled otherwise.
 TRD_IMPL = "auto"
+
+# The memory rule (reference: _rolled_peak_bytes / _needs_windowed,
+# eigenexa_tpu/ops/householder.py:378-390, with the card's own constants).
+# A whole rolled solve peaks above what is in use when its reduction starts
+# (the caller's input and the scaled working matrix) at
+#     PEAK_N2[band]·n²·itemsize + PEAK_MERGE[band]·m·w·8 bytes:
+# the reflectors V, held through the D&C, and the f64 secular work of the
+# widest merge that is not panel-chunked, which sets the peak (m the D&C's
+# padded size, w that merge's width: m/w merges of w² each).  band 1 is
+# eigen_s, band 2 eigen_sx.  PEAK_MERGE is the least that covers the f32
+# peaks at n = 8192, 16384 and 32768 of ``chip_smoke.py --findings``
+# (memory; NVIDIA H100 80GB HBM3, 700 W): 15.01, 7.44 and 3.71 n²·4 bytes
+# (eigen_s), 17.02, 8.45 and 4.21 (eigen_sx).  The same peak is measured
+# through either reduction, so where the rolled solve does not fit the
+# windowed one rarely does; it needs one n² buffer less while it reduces.
+PEAK_N2 = {1: 1.0, 2: 1.0}
+PEAK_MERGE = {1: 7.01, 2: 8.01}
 
 
 class TridiagResult(NamedTuple):
@@ -306,6 +320,47 @@ def _tridiagonalize_windowed(b: torch.Tensor, nb: int) -> TridiagResult:
     return TridiagResult(d=d, e=e[:n - 1], v=b, tau=tau_full)
 
 
+def _rolled_peak_bytes(n: int, itemsize: int = 4, band: int = 1) -> float:
+    """The whole rolled solve's peak above what is in use when its
+    reduction starts (see ``PEAK_N2``), from the D&C's own chunk width."""
+    from eigenexa_tpu_torch.solvers import dc_band, dc_tree, solver
+
+    m, _ = dc_tree._pad_sizes(n, solver._DC_LEAF)
+    w = m
+    while w >= (dc_tree if band == 1 else dc_band)._LEVEL_CHUNK_MIN:
+        w //= 2
+    return PEAK_N2[band] * n * n * itemsize + PEAK_MERGE[band] * m * w * 8.0
+
+
+def _needs_windowed(n: int, mem_bytes: float, itemsize: int = 4,
+                    band: int = 1) -> bool:
+    """The pure memory rule: the rolled solve does not fit 0.9 of the
+    device memory free to the solve."""
+    return _rolled_peak_bytes(n, itemsize, band) > 0.9 * mem_bytes
+
+
+def _free_bytes(device) -> int:
+    """Device memory free to a solve on ``device``: what the driver reports
+    free (``torch.cuda.mem_get_info``) and what PyTorch's allocator holds
+    unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _auto_impl(a: torch.Tensor, band: int) -> str:
+    """What "auto" picks: the windowed reduction for a real CUDA tensor
+    whose rolled solve does not fit, else rolled (a CPU or complex tensor
+    always).  Where neither fits, the windowed one runs and its
+    out-of-memory error rises."""
+    if a.device.type != "cuda" or a.is_complex():
+        return "rolled"
+    n = a.shape[0]
+    return ("windowed" if _needs_windowed(n, _free_bytes(a.device),
+                                          a.element_size(), band)
+            else "rolled")
+
+
 def tridiagonalize(a: torch.Tensor, nb: int = 64, impl: str = "auto",
                    donate: bool = False) -> TridiagResult:
     """Reduce symmetric or Hermitian A (n×n) to real tridiagonal
@@ -320,14 +375,14 @@ def tridiagonalize(a: torch.Tensor, nb: int = 64, impl: str = "auto",
     scaled temporary); otherwise it is copied first.
 
     ``impl`` is "rolled", "windowed" or "auto"; "auto" follows the module's
-    ``TRD_IMPL`` and, if that is "auto" too, is rolled.  The windowed
-    path returns its working matrix as v, so with ``donate=True`` it
-    allocates no second n×n buffer.
+    ``TRD_IMPL`` and, if that is "auto" too, the memory rule
+    (:func:`_auto_impl`).  The windowed path returns its working matrix as
+    v, so with ``donate=True`` it allocates no second n×n buffer.
     """
     if impl == "auto":
         impl = TRD_IMPL
     if impl == "auto":
-        impl = "rolled"
+        impl = _auto_impl(a, band=1)
     if impl not in ("rolled", "windowed"):
         raise ValueError(f"tridiagonalize: unknown impl {impl!r}")
     if impl == "windowed" and a.is_complex():

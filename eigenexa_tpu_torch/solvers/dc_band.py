@@ -22,10 +22,12 @@ The port's ``dc_tree`` conventions: f64 work dtype on every device (the JAX
 package's f32 work dtype and ``n_iter=16`` are TPU workarounds), leaves
 from one batched ``torch.linalg.eigh`` on the device, NaN poisoning of
 non-finite input, and a gather with the inverse permutation in place of
-JAX's ``.at[perm].set``.  The JAX package's host path
-(``_host_leaf_eigh_band2``) and its panel-chunked top levels
-(``_merge_level_band2_chunked``, ``_solve_band2_level``) are not ported
-(ROADMAP A6/A7): the top merge holds C₁, C₂ and C₁·C₂, each (2s)² f64.
+JAX's ``.at[perm].set``.  A join at least ``_LEVEL_CHUNK_MIN`` wide takes
+``_merge_level_band2_chunked`` (reference: dc_band.py:305, its constants
+:400-401, with the card's panel of 2048): both merges build their
+transforms in column panels, so the (2s)² C₁, C₂ and C₁·C₂ of
+``_merge_level_band2`` are never held.  The JAX package's host path
+(``_host_leaf_eigh_band2``) serves the TPU's f64 and is not ported.
 """
 
 from __future__ import annotations
@@ -34,10 +36,15 @@ from typing import Tuple
 
 import torch
 
-from eigenexa_tpu_torch.ops.secular import rank1_merge_core
+from eigenexa_tpu_torch.ops.secular import (rank1_merge_apply_parts,
+                                            rank1_merge_core)
 from eigenexa_tpu_torch.solvers.dc_tree import _pad_sizes
 
 F64 = torch.float64
+# the band-2 twins of dc_tree._LEVEL_CHUNK_MIN / _LEVEL_CHUNK_PANEL (the
+# same measurement placed the panel)
+_LEVEL_CHUNK_MIN = 16384
+_LEVEL_CHUNK_PANEL = 2048
 
 
 def _cut_vectors(e1_pad, e2_pad, p):
@@ -104,6 +111,34 @@ def _merge_level_band2(w, q, rows_lo, rows_hi, a, b, c, f, h, vec_dtype):
     return (core2.lam, torch.cat([top, bot], dim=1), lo1 @ c2, hi1 @ c2)
 
 
+def _merge_level_band2_chunked(w, q, rows_lo, rows_hi, a, b, c, f, h,
+                               vec_dtype, panel: int):
+    """:func:`_merge_level_band2` with both rank-1 merges built in column
+    panels (``rank1_merge_apply_parts``; reference:
+    ``_merge_level_band2_chunked``, eigenexa_tpu/solvers/dc_band.py:305).
+    Merge 1 takes the two blocks, their boundary rows and the two coupling
+    rows p − 1 and p + 1 as its parts; merge 2 then acts on the merged
+    eigenvectors Q·C₁ in vec_dtype and on the boundary rows in f64."""
+    bsz, s = w.shape
+    half = bsz // 2
+    q2 = q.reshape(half, 2, s, s)
+    rl = rows_lo.reshape(half, 2, 2, s)   # [pair, block, row, s]
+    rh = rows_hi.reshape(half, 2, 2, s)
+    ones = torch.ones(half, dtype=F64, device=w.device)
+    z1 = torch.cat([a[:, None] * rh[:, 0, 0] + b[:, None] * rh[:, 0, 1],
+                    c[:, None] * rl[:, 1, 0]], dim=1)
+    q1 = torch.empty((half, 2 * s, 2 * s), dtype=vec_dtype, device=q.device)
+    lam1, (_, _, lo1, hi1, pm1, pp1) = rank1_merge_apply_parts(
+        w.reshape(half, 2 * s), z1, ones,
+        ((q2[:, 0], 0), (q2[:, 1], s), (rl[:, 0], 0), (rh[:, 1], s),
+         (rh[:, 0, 1, None, :], 0), (rl[:, 1, 1, None, :], s)),
+        panel=panel, outs=(q1[:, :s], q1[:, s:], None, None, None, None))
+    z2 = f[:, None] * pm1[:, 0] + h[:, None] * pp1[:, 0]
+    lam2, (q_new, lo2, hi2) = rank1_merge_apply_parts(
+        lam1, z2, ones, ((q1, 0), (lo1, 0), (hi1, 0)), panel=panel)
+    return lam2, q_new, lo2, hi2
+
+
 def solve_band2_dc(d: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
                    leaf: int = 32, vec_dtype=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -165,7 +200,12 @@ def solve_band2_dc(d: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
     for lvl in range(levels):
         s = leaf * 2 ** lvl
         ci = torch.arange(s, m, 2 * s, device=dev) // leaf - 1
-        w, q, rows_lo, rows_hi = _merge_level_band2(
-            w, q, rows_lo, rows_hi, a_all[ci], b_all[ci], c_all[ci],
-            f_all[ci], h_all[ci], vec_dtype)
+        coefs = (a_all[ci], b_all[ci], c_all[ci], f_all[ci], h_all[ci])
+        if 2 * s >= _LEVEL_CHUNK_MIN:
+            w, q, rows_lo, rows_hi = _merge_level_band2_chunked(
+                w, q, rows_lo, rows_hi, *coefs, vec_dtype,
+                _LEVEL_CHUNK_PANEL)
+        else:
+            w, q, rows_lo, rows_hi = _merge_level_band2(
+                w, q, rows_lo, rows_hi, *coefs, vec_dtype)
     return w.reshape(m)[:n], q.reshape(m, m)[:n, :n]

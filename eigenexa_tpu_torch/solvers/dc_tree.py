@@ -13,7 +13,15 @@ Counterpart of ``eigenexa_tpu/solvers/dc_tree.py`` (reference: dc2_FS.F:75
   leaves from ``torch.linalg.eigh`` in float64, the O(m³) eigenvector GEMM
   cascade in the requested vector dtype;
 * padding coordinates carry zero coupling, so they deflate exactly at
-  every level and fall out of the final slice.
+  every level and fall out of the final slice;
+* a merge at least ``_LEVEL_CHUNK_MIN`` wide never builds its (2s)²
+  transform: ``_merge_level_chunked`` builds it ``_LEVEL_CHUNK_PANEL``
+  columns at a time and multiplies each panel into the new eigenvectors
+  at once (``ops/secular.rank1_merge_apply_parts``; the JAX package's
+  ``_merge_level_chunked``, dc_tree.py:181, with its chunk width and a
+  panel of the card's own, :222-223).
+  The levels below keep ``rank1_merge_core``.  With the top levels chunked,
+  the level below them sets the D&C's memory peak.
 """
 
 from __future__ import annotations
@@ -22,9 +30,17 @@ from typing import Tuple
 
 import torch
 
-from eigenexa_tpu_torch.ops.secular import rank1_merge_core
+from eigenexa_tpu_torch.ops.secular import (rank1_merge_apply_parts,
+                                            rank1_merge_core)
 
 F64 = torch.float64
+# merges at least this wide build C in column panels of _LEVEL_CHUNK_PANEL
+# (module attributes, read at each level).  The width is the JAX package's;
+# panels of 2048 took 5–11% less D&C time than its 1024 in every warm run
+# at Frank n = 16384 and 32768 f32, in both trees, at the same peak
+# (tools/dc_chunk.py; NVIDIA H100 80GB HBM3, 700 W)
+_LEVEL_CHUNK_MIN = 16384
+_LEVEL_CHUNK_PANEL = 2048
 
 
 def _pad_sizes(n: int, leaf: int) -> Tuple[int, int]:
@@ -60,17 +76,41 @@ def _merge_level(d, q, row0, row1, rho, sgn, vec_dtype):
     r1 = row1.reshape(h, 2, s)
     z = torch.cat([r1[:, 0], sgn[:, None] * r0[:, 1]], dim=1)
     core = rank1_merge_core(d.reshape(h, 2 * s), z, rho)
+    lam = core.lam
     # rows of c back to pre-sort coordinate order (a gather with the
     # inverse permutation), then the block-diagonal basis in two
     # half-height GEMMs (dlaed3 shape)
     c_unsorted = core.unsorted_c()
+    del core
     cu = c_unsorted.to(vec_dtype)
     top = q2[:, 0] @ cu[:, :s, :]
     bot = q2[:, 1] @ cu[:, s:, :]
     # propagate boundary rows in f64 (O(m²))
     row0_new = (r0[:, 0, None, :] @ c_unsorted[:, :s, :])[:, 0]
     row1_new = (r1[:, 1, None, :] @ c_unsorted[:, s:, :])[:, 0]
-    return core.lam, torch.cat([top, bot], dim=1), row0_new, row1_new
+    return lam, torch.cat([top, bot], dim=1), row0_new, row1_new
+
+
+def _merge_level_chunked(d, q, row0, row1, rho, sgn, vec_dtype,
+                         panel: int):
+    """:func:`_merge_level` with C built `panel` columns at a time
+    (``rank1_merge_apply_parts``): the new eigenvectors are written into
+    one (B/2, 2s, 2s) buffer panel by panel, and no transient is larger
+    than (B/2, 2s, panel) in f64 (reference: ``_merge_level_chunked``,
+    eigenexa_tpu/solvers/dc_tree.py:181)."""
+    bsz, s = d.shape
+    h = bsz // 2
+    q2 = q.reshape(h, 2, s, s)
+    r0 = row0.reshape(h, 2, s)
+    r1 = row1.reshape(h, 2, s)
+    z = torch.cat([r1[:, 0], sgn[:, None] * r0[:, 1]], dim=1)
+    out = torch.empty((h, 2 * s, 2 * s), dtype=vec_dtype, device=q.device)
+    lam, (_, _, row0_new, row1_new) = rank1_merge_apply_parts(
+        d.reshape(h, 2 * s), z, rho,
+        ((q2[:, 0], 0), (q2[:, 1], s), (r0[:, 0, None, :], 0),
+         (r1[:, 1, None, :], s)),
+        panel=panel, outs=(out[:, :s], out[:, s:], None, None))
+    return lam, out, row0_new[:, 0], row1_new[:, 0]
 
 
 def solve_tridiag_dc(d: torch.Tensor, e: torch.Tensor, leaf: int = 32,
@@ -126,7 +166,12 @@ def solve_tridiag_dc(d: torch.Tensor, e: torch.Tensor, leaf: int = 32,
         s = leaf * (2 ** lvl)
         e_cut = e_pad[torch.arange(s, m, 2 * s, device=dev) - 1]
         sgn = torch.where(e_cut >= 0, 1.0, -1.0).to(F64)
-        w, q, row0, row1 = _merge_level(w, q, row0, row1, e_cut.abs(), sgn,
-                                        vec_dtype)
+        if 2 * s >= _LEVEL_CHUNK_MIN:
+            w, q, row0, row1 = _merge_level_chunked(
+                w, q, row0, row1, e_cut.abs(), sgn, vec_dtype,
+                _LEVEL_CHUNK_PANEL)
+        else:
+            w, q, row0, row1 = _merge_level(w, q, row0, row1, e_cut.abs(),
+                                            sgn, vec_dtype)
 
     return w.reshape(m)[:n], q.reshape(m, m)[:n, :n]

@@ -20,8 +20,11 @@ and ``eigen_sx`` to pentadiagonal form in one stage (PRD-BLK,
         directory of D.data/E.data[/F.data] or a (d, e[, e2]) tuple), ``a``
         may be None (src/eigen_sx.F:175-193)
 
-Both reductions follow ``householder.TRD_IMPL``: rolled, unless it forces
-the windowed one.  The scaled temporary is donated to the reduction; the
+Both reductions follow ``householder.TRD_IMPL``; where it is "auto", a
+real matrix on the card takes the windowed reduction only if the rolled
+solve would not fit the card's free memory (``householder._auto_impl``),
+and every other input the rolled one.  The scaled temporary is donated to
+the reduction; the
 windowed one hands that same buffer back as the reflector matrix, so the
 stage holds one n×n buffer beside the caller's input.  The bisection of
 modes N and X runs on the card in ``csrc/sturm.cu``

@@ -47,27 +47,51 @@ class CheckResult:
         return f"<{self.name}: {self.value:.4g} {self.status()}>"
 
 
-def residual_check(a, z, w, nvec: Optional[int] = None) -> CheckResult:
-    """‖AZ−ZW‖_F / (N·ε·‖A‖_F) with PASS<768 / FAIL>1024."""
+def _blocks(m: int, col_chunk: int):
+    """Column blocks [c0, c0 + col_chunk) of m columns; one block when
+    col_chunk is 0."""
+    step = col_chunk if col_chunk > 0 else max(m, 1)
+    return [slice(c0, c0 + step) for c0 in range(0, m, step)]
+
+
+def residual_check(a, z, w, nvec: Optional[int] = None,
+                   col_chunk: int = 0) -> CheckResult:
+    """‖AZ−ZW‖_F / (N·ε·‖A‖_F) with PASS<768 / FAIL>1024.
+
+    ``col_chunk`` > 0 streams Z in blocks of that many columns and adds the
+    blocks' norms in quadrature, so no n×n product is held beside A and Z
+    (reference: checks.py:46)."""
     n = a.shape[0]
     if nvec is not None:
         z = z[:, :nvec]
         w = w[:nvec]
     eps = torch.finfo(a.dtype).eps
-    r = a @ z - z * w[None, :].to(z.dtype)
-    val = float(torch.linalg.norm(r) / (n * eps * torch.linalg.norm(a)))
+    num2 = 0.0
+    for cols in _blocks(z.shape[1], col_chunk):
+        zc = z[:, cols]
+        num2 += float(torch.linalg.norm(
+            a @ zc - zc * w[None, cols].to(z.dtype))) ** 2
+    val = num2 ** 0.5 / (n * eps * float(torch.linalg.norm(a)))
     return CheckResult("residual", val, val < 768.0, val > 1024.0)
 
 
-def orthogonality_check(z, nvec: Optional[int] = None) -> CheckResult:
-    """‖ZᵀZ−I‖_F / (N·ε) with PASS<8 / FAIL>32."""
+def orthogonality_check(z, nvec: Optional[int] = None,
+                        col_chunk: int = 0) -> CheckResult:
+    """‖ZᵀZ−I‖_F / (N·ε) with PASS<8 / FAIL>32.
+
+    ``col_chunk`` > 0 takes the Gram matrix in column blocks, each block
+    subtracting its part of the identity in place (reference:
+    checks.py:80)."""
     n = z.shape[0]
     if nvec is not None:
         z = z[:, :nvec]
     eps = torch.finfo(z.dtype).eps
-    g = z.conj().T @ z
-    g.diagonal().sub_(1.0)
-    val = float(torch.linalg.norm(g) / (n * eps))
+    val2 = 0.0
+    for cols in _blocks(z.shape[1], col_chunk):
+        g = z.conj().T @ z[:, cols]
+        g[cols].diagonal().sub_(1.0)
+        val2 += float(torch.linalg.norm(g)) ** 2
+    val = val2 ** 0.5 / (n * eps)
     return CheckResult("orthogonality", val, val < 8.0, val > 32.0)
 
 

@@ -657,3 +657,59 @@ def test_a_cpu_call_counts_no_launch(cuda):
     ext.eigen_sx(a, mode="X", ctx=ext.eigen_init("cpu"))
     assert tk.LAUNCHES == before
     ext.eigen_free()
+
+
+@pytest.mark.parametrize("band", [1, 2])
+def test_chunked_level_on_the_card(cuda, band, monkeypatch):
+    """Both D&C trees at n=2048 with their two top levels panel-chunked
+    (the chunk width lowered to 1024, panels of 256) against the unchunked
+    tree on the card: w within 1e-12 of ‖T‖, both pass the checks on T,
+    and the chunked reruns are bitwise equal."""
+    from eigenexa_tpu_torch.ops.band import assemble_band2
+    from eigenexa_tpu_torch.solvers import dc_band, dc_tree
+
+    n = 2048
+    g = np.random.default_rng(80 + band)
+    bands = [torch.as_tensor(g.standard_normal(n - k), device=cuda)
+             for k in range(band + 1)]
+    mod, solve = ((dc_tree, dc_tree.solve_tridiag_dc) if band == 1
+                  else (dc_band, dc_band.solve_band2_dc))
+    w0, _ = solve(*bands)
+    monkeypatch.setattr(mod, "_LEVEL_CHUNK_MIN", 1024)
+    monkeypatch.setattr(mod, "_LEVEL_CHUNK_PANEL", 256)
+    w1, s1 = solve(*bands)
+    w2, s2 = solve(*bands)
+    assert torch.equal(w1, w2) and torch.equal(s1, s2)
+    tt = assemble_band2(*bands, *([torch.zeros(n - 2, dtype=torch.float64,
+                                               device=cuda)] * (band == 1)))
+    scale = float(tt.abs().sum(dim=1).max())
+    assert float((w1 - w0).abs().max()) < 1e-12 * scale
+    assert residual_check(tt, s1, w1).passed
+    assert orthogonality_check(s1).passed
+
+
+def test_memory_rule_reads_the_cards_free_memory(cuda, monkeypatch):
+    """"auto" reads torch.cuda.mem_get_info of the input's device: with
+    nothing reported free it takes the windowed reduction (symv_lower
+    launches), with the card's real free memory the rolled one."""
+    from eigenexa_tpu_torch.ops import householder
+
+    real = torch.cuda.mem_get_info
+    asked = []
+
+    def nothing_free(device=None):
+        asked.append(device)
+        return 0, real(device)[1]
+
+    a = _randn(83, 4096, 4096, dtype=torch.float32, device=cuda)
+    a = a + a.T
+    torch.cuda.empty_cache()
+    monkeypatch.setattr(torch.cuda, "mem_get_info", nothing_free)
+    before = tk.LAUNCHES["symv_lower"]
+    householder.tridiagonalize(a)
+    assert asked == [a.device] and tk.LAUNCHES["symv_lower"] > before
+    monkeypatch.setattr(torch.cuda, "mem_get_info", real)
+    before = dict(tk.LAUNCHES)
+    householder.tridiagonalize(a)
+    assert tk.LAUNCHES["symv_lower"] == before["symv_lower"]
+    assert tk.LAUNCHES["sub_matmul"] > before["sub_matmul"]

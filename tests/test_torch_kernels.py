@@ -854,3 +854,38 @@ def test_port_never_imports_jax():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "eigenexa_tpu"), (path, name)
+
+
+def test_chip_smoke_large_phase_passes_on_the_cpu(monkeypatch):
+    """The card script's large phase at Frank n = 200 on the CPU, with the
+    D&C's chunk width lowered so that its two top levels are panel-chunked
+    and the checks streamed in blocks: eigen_s twice (bitwise equal) and
+    eigen_sx pass every check through "auto", which keeps a CPU tensor
+    rolled, and no kernel is launched.  Then the windowed path's kernel
+    cases at m = 700, as the phase adds them where the rule picks that
+    path."""
+    from eigenexa_tpu_torch.solvers import dc_band, dc_tree
+
+    cs = _chip_smoke()
+    zeros = dict.fromkeys(tk.LAUNCHES, 0)
+    monkeypatch.setattr(cs, "_want", lambda **counts: dict(zeros))
+    monkeypatch.setattr(cs, "expected_launches_sx",
+                        lambda n, windowed: dict(zeros))
+    monkeypatch.setattr(cs, "CHECK_CHUNK", 64)
+    for mod in (dc_tree, dc_band):
+        monkeypatch.setattr(mod, "_LEVEL_CHUNK_MIN", 128)
+        monkeypatch.setattr(mod, "_LEVEL_CHUNK_PANEL", 32)
+    cpu = torch.device("cpu")
+    before = dict(tk.LAUNCHES)
+    assert cs.large_phase(cpu, 200, eigh_sizes=()) == (
+        zeros, zeros, {"eigen_s": "rolled", "eigen_sx": "rolled"})
+    assert cs.large_window_kernels(cpu, {"eigen_s": "rolled",
+                                         "eigen_sx": "rolled"}) == []
+    rows = cs.large_window_kernels(cpu, {"eigen_s": "windowed",
+                                         "eigen_sx": "windowed"}, m=700,
+                                   timed=False)
+    assert [r["case"] for r in rows] == [
+        "large_fused_first_column", "large_sx_pair_first",
+        "large_first_panel"]
+    assert all(r["max_abs_err"] <= r["bound"] for r in rows)
+    assert tk.LAUNCHES == before

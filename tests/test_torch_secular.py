@@ -121,9 +121,10 @@ def test_on_pole_merges(fixture):
 def test_run_rotation_is_orthogonal_and_concentrates_weight():
     d = np.repeat(np.arange(5.0), 3)[None, :]
     z = rng(4).standard_normal((1, 15))
-    zr, u_hat, leaders = ts._rotate_runs(t(d), t(z), t(np.array([1e-12])))
+    zr, u_hat, leaders, tiles = ts._rotate_runs(t(d), t(z),
+                                                t(np.array([1e-12])), 15)
     eye = torch.eye(15, dtype=torch.float64)[None]
-    g = ts.apply_run_rotation(eye, u_hat, leaders)[0]
+    g = ts.apply_run_rotation(eye, u_hat, leaders, tiles)[0]
     np.testing.assert_allclose(n_(g @ g.T), np.eye(15), atol=1e-14)
     np.testing.assert_allclose(n_(g @ t(z[0])), n_(zr)[0], atol=1e-14)
     assert np.count_nonzero(n_(zr)[0]) == 5            # one per run

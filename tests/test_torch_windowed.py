@@ -348,9 +348,9 @@ def test_eigen_s_windowed_matches_jax(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_eigen_s_auto_is_rolled(monkeypatch):
-    """No memory rule picks the windowed reduction: the D&C sets the peak
-    of the whole solve through either one, so "auto" is rolled and only
-    ``TRD_IMPL`` or ``impl`` force the other."""
+    """On a CPU tensor the memory rule never applies: "auto" is rolled, and
+    only ``TRD_IMPL`` or ``impl`` force the other (the rule itself:
+    tests/test_torch_chunked.py)."""
     def boom(*args):
         raise AssertionError("windowed path taken")
 
