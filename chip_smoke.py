@@ -92,7 +92,17 @@ result line:
               b_orthogonality, bitwise equal, 2 × 191 ``sub_matmul``
               launches, the stage split), mode N within the strict w_test
               of mode A's w with one ``sturm_bisect`` launch;
-11. large   — Frank n = 32768 f32 through the memory rule ("auto", which
+11. bench   — the ported benchmark runner (``eigenexa_tpu_torch.bench``):
+              ``run_input_file`` on ``benchmarks/IN`` and
+              ``benchmarks/IN_GEV`` (every line n = 256) at f32 and f64,
+              each report printed as a ``bench`` JSON line, every
+              residual, orthogonality, gev_residual and b_orthogonality
+              PASS, ``sub_matmul`` and ``sturm_bisect`` (IN's mode-0 line)
+              launched; then ``bench_torch.py`` in a child process at
+              BENCH_N=8192 f32 without its large extras: exit 0, a last
+              line that parses as JSON, its residual, orthogonality,
+              eigenvalue and bitwise-rerun flags all true;
+12. large   — Frank n = 32768 f32 through the memory rule ("auto", which
               prints the reduction it chose and the free memory it read):
               ``eigen_s`` twice (bitwise equal) and ``eigen_sx`` once, each
               with residual, orthogonality (Z in blocks of 4096 columns)
@@ -1527,6 +1537,66 @@ def gev_phase(device, n: int = N_F64):
     return counts[0], counts_n
 
 
+BENCH_CHECKS = ("residual", "orthogonality", "gev_residual",
+                "b_orthogonality")
+
+
+def bench_runner_phase(device, names=("IN", "IN_GEV")):
+    """The ported runner's ``run_input_file`` on each of ``benchmarks/``'s
+    `names` at f32 and f64 on `device`: every report printed as one JSON
+    line, every residual and orthogonality check PASS (a hard failure
+    raises SystemExit in the runner).  Returns the launches."""
+    import torch
+    from eigenexa_tpu_torch.bench.runner import run_input_file
+    from eigenexa_tpu_torch.ops import kernels
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    _reset_launches(kernels)
+    for name in names:
+        for dtype in (torch.float32, torch.float64):
+            for rep in run_input_file(os.path.join(here, "benchmarks", name),
+                                      dtype=dtype, device=device):
+                print("bench", json.dumps(rep), flush=True)
+                bad = {k: v for k, v in rep["checks"].items()
+                       if k in BENCH_CHECKS and v["status"] != "PASSED"}
+                if bad:
+                    raise AssertionError(f"bench {name}: {bad}")
+    counts = _take_launches(kernels)
+    print(f"bench: launches of the input files {json.dumps(counts)}",
+          flush=True)
+    return counts
+
+
+def bench_torch_phase(n: int = N_SLICE) -> dict:
+    """``bench_torch.py`` in a child process at BENCH_N=n, f32, without its
+    large extras: exit 0, a last line that parses as JSON, and its
+    residual, orthogonality, eigenvalue and bitwise-rerun flags true."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, BENCH_N=str(n), BENCH_DTYPE="f32",
+               BENCH_LARGE="0")
+    out = subprocess.run(
+        [sys.executable, os.path.join(here, "bench_torch.py")], cwd=here,
+        env=env, capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"bench_torch.py exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    result = json.loads(lines[-1])
+    print(f"bench_torch {lines[-1]}", flush=True)
+    flags = ("residual_pass", "ortho_pass", "w_pass", "repro_bitwise")
+    if not all(result["extra"][k] is True for k in flags):
+        raise AssertionError(f"bench_torch.py flags {result['extra']}")
+    return result
+
+
+def bench_phase(device, n: int = N_SLICE) -> dict:
+    """The runner on the repository's input files, then ``bench_torch.py``
+    at n; returns the runner's launches."""
+    counts = bench_runner_phase(device)
+    bench_torch_phase(n)
+    return counts
+
+
 def _solve_large(device, drive, a, label: str, want_of):
     """One profiled solve through the memory rule ("auto"): prints the
     reduction the rule chose and the free memory it read, the stage split,
@@ -1818,8 +1888,8 @@ def large_window_kernels(device, chosen: dict, m: int = N_LARGE,
                 "float32": [("large_first_panel", m, 0)]}))
 
 
-def _kernels_line(rows, launches, complex_launches,
-                  large_launches: int) -> dict:
+def _kernels_line(rows, launches, complex_launches, large_launches: int,
+                  bench_launches: dict) -> dict:
     """One entry per kernel at its shape on the f32 windowed path, with an
     ``f64`` object of the same kernel at its shape on the f64 windowed
     path, and for ``sub_matmul`` ``c64`` and ``c128`` objects at the
@@ -1828,7 +1898,8 @@ def _kernels_line(rows, launches, complex_launches,
     path's two f32 shapes with the launches of that eigen_s solve
     (`large_launches`); ``sturm_bisect`` (f64 only) at its band-1
     bisection of n = 8192, its plain time at n = 1024, with a ``band2``
-    object of the band-2 bisection."""
+    object of the band-2 bisection.  Each entry's ``bench_launches`` are
+    its launches in the bench phase's input files."""
     main_case = {"sub_matmul": ("wy_windowed_path", "wy"),
                  "symv_lower": ("fused_first_column",
                                 "fused_f64_path_first_column"),
@@ -1841,7 +1912,8 @@ def _kernels_line(rows, launches, complex_launches,
     out = []
     for name, meta in KERNELS.items():
         if name == "sturm_bisect":
-            out.append(_sturm_entry(rows, meta, launches[name]))
+            out.append({**_sturm_entry(rows, meta, launches[name]),
+                        "bench_launches": bench_launches[name]})
             continue
         row, row64 = (next(r for r in rows if r["name"] == name
                            and r["case"] == case and r["dtype"] == dtype)
@@ -1849,7 +1921,8 @@ def _kernels_line(rows, launches, complex_launches,
                                              ("float32", "float64")))
         entry = {"name": name, "route": "cuda", **meta,
                  "launches": launches[name], **{k: row[k] for k in keys},
-                 "f64": {k: row64[k] for k in f64_keys}}
+                 "f64": {k: row64[k] for k in f64_keys},
+                 "bench_launches": bench_launches[name]}
         if name == "sub_matmul":
             entry["n32768"] = {
                 short: {"launches": large_launches,
@@ -1947,6 +2020,7 @@ def main() -> int:
     modes = _timed_phase("modes", modes_phase, device)
     herm64, herm128 = _timed_phase("hermitian", hermitian_phase, device)
     gev, gev_n = _timed_phase("gev", gev_phase, device)
+    bench = _timed_phase("bench", bench_phase, device)
     large_s, large_sx, chosen = _timed_phase("large", large_phase, device)
     rows += _timed_phase("kernels at the large windowed path",
                          large_window_kernels, device, chosen)
@@ -1955,7 +2029,8 @@ def main() -> int:
              ("sx rolled", sx_rolled), ("sx windowed", sx_windowed),
              ("modes N and X", modes), ("hermitian c64", herm64),
              ("hermitian c128", herm128), ("gev", gev), ("gev N", gev_n),
-             ("large eigen_s", large_s), ("large eigen_sx", large_sx))
+             ("bench", bench), ("large eigen_s", large_s),
+             ("large eigen_sx", large_sx))
     for path, counts in paths:
         print(f"launches on the {path} path: {json.dumps(counts)}",
               flush=True)
@@ -1963,14 +2038,15 @@ def main() -> int:
     if not (all(counts["sub_matmul"] > 0 for _, counts in paths)
             and all(path[name] > 0 for name in matmul
                     for path in (windowed, windowed64, sx_windowed))
-            and modes["sturm_bisect"] > 0 and gev_n["sturm_bisect"] > 0):
+            and modes["sturm_bisect"] > 0 and gev_n["sturm_bisect"] > 0
+            and bench["sturm_bisect"] > 0):
         raise AssertionError("a kernel of a main path was never launched")
 
     print(json.dumps(_kernels_line(rows, {**windowed, "sturm_bisect":
                                           modes["sturm_bisect"]},
                                    {"c64": herm64["sub_matmul"],
                                     "c128": herm128["sub_matmul"]},
-                                   large_s["sub_matmul"])))
+                                   large_s["sub_matmul"], bench)))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,14 +62,16 @@ _DC_LEAF = 32   # D&C leaf size: 8 merge levels at n = 8192
 
 @dataclasses.dataclass
 class SolveInfo:
-    """Telemetry contract (a(1,1)/a(2,1) analogue, src/eigen_s.F:284-295;
-    the collective time a(3,1) comes with the distributed port, ROADMAP
-    A17).  `stages` holds the TRD-BLK (PRD-BLK for eigen_sx) / D&C (BISECT
+    """Telemetry contract (a(1,1)/a(2,1)/a(3,1) analogue,
+    src/eigen_s.F:284-295).  `comm_time` is 0 on one device; the
+    distributed drivers and their `comm_stats` wait for ROADMAP A17.
+    `stages` holds the TRD-BLK (PRD-BLK for eigen_sx) / D&C (BISECT
     in mode N) / TRDBAK seconds and flops when the solve ran with
     profile=True."""
 
     flops: float = 0.0       # model flops: 4/3·n³ (TRD) + dc + 2·nvec·n²
     elapsed: float = 0.0     # wall seconds for the whole solve
+    comm_time: float = 0.0   # collective seconds (0 on one device)
     n: int = 0
     nvec: int = 0
     mode: str = "A"

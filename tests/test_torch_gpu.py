@@ -713,3 +713,20 @@ def test_memory_rule_reads_the_cards_free_memory(cuda, monkeypatch):
     householder.tridiagonalize(a)
     assert tk.LAUNCHES["symv_lower"] == before["symv_lower"]
     assert tk.LAUNCHES["sub_matmul"] > before["sub_matmul"]
+
+
+def test_bench_runner_line_on_the_card(cuda):
+    """One line of the ported benchmark runner at n = 512 f32 on the card
+    (Frank, eigen_s, mode A, profiled): the report's checks pass, its
+    stages are eigen_s's, and the solve launched sub_matmul."""
+    from eigenexa_tpu_torch.bench.runner import BenchCase, run_case
+
+    before = tk.LAUNCHES["sub_matmul"]
+    rep = run_case(BenchCase(n=512, nvec=512), dtype=torch.float32,
+                   device=cuda, printer=None, profile=True)
+    assert tk.LAUNCHES["sub_matmul"] > before
+    assert (rep["n"], rep["dtype"], rep["grid"]) == (512, "float32", "1x1")
+    assert rep["checks"]["residual"]["status"] == "PASSED"
+    assert rep["checks"]["orthogonality"]["status"] == "PASSED"
+    assert list(rep["stages"]) == ["TRD-BLK", "D&C", "TRDBAK"]
+    assert not rep["hard_fail"]

@@ -847,7 +847,8 @@ def test_port_never_imports_jax():
     assert names >= {"ops/sturm.py", "ops/band.py", "solvers/dc_band.py",
                      "utils/stageio.py", "ops/kernels.py", "ops/_build.py"}
     # the card's tests and chip tools run where JAX is not installed
-    files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py",
+    files += [REPO / "chip_smoke.py", REPO / "bench_torch.py",
+              REPO / "tests" / "test_torch_gpu.py",
               *(REPO / "tools").glob("*.py")]
     assert len(files) > 10
     for path in files:
