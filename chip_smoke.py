@@ -36,9 +36,10 @@ result line:
               1 and 2, bisection and refinement, on the tridiagonal and
               pentadiagonal of Frank reductions: every index at n = 1024
               (the plain version on the card), 32 indices spread over the
-              spectrum at n = 8192 (the plain version on the host's CPU:
-              on the card its eager loop would issue millions of
-              launches), a failed bracket keeping its w0 at both sizes,
+              spectrum at n = 8192 (the plain version on the host's CPU,
+              in worker processes beside the later phases: on the card
+              its eager loop would issue millions of launches), a failed
+              bracket keeping its w0 at both sizes,
               with the card's time at n = 8192 beside its
               bound and ``torch.linalg.eigvalsh`` on the dense matrix; and
               ``same_bits``: a large ``sub_matmul`` call against the same
@@ -92,7 +93,27 @@ result line:
               b_orthogonality, bitwise equal, 2 × 191 ``sub_matmul``
               launches, the stage split), mode N within the strict w_test
               of mode A's w with one ``sturm_bisect`` launch;
-11. bench   — the ported benchmark runner (``eigenexa_tpu_torch.bench``):
+11. dist    — the distributed drivers (``eigenexa_tpu_torch.parallel``),
+              each mesh's ranks started by ``parallel.launch.spawn``: a 1×1
+              mesh on NCCL (a real one-rank communicator) solves Frank
+              n = 8192 f32 with ``distributed_eigen_s`` twice (bitwise
+              equal, the checks, its warm time beside the slice phase's),
+              ``distributed_eigen_h`` on the phased Frank matrix at c128
+              n = 4096 and ``distributed_eigen_gev`` f64 n = 4096 (Frank,
+              ``designed(linspace(1, 2, n))``); a 2×2 mesh on gloo, its
+              four ranks on the one card, solves ``distributed_eigen_s``
+              Frank n = 2048 f32 and f64, ``distributed_eigen_h`` c64
+              n = 1024, ``distributed_eigen_gev`` f64 n = 1024 modes A and
+              N and ``independent_solves`` of 5 problems n = 1024, each
+              twice (the reruns bitwise equal) with its checks, and w
+              within the CPU tests' bounds of the 1×1 mesh's at the same n
+              and dtype.
+              Each mesh prints ``calibrate_overheads``' latency and per-byte
+              cost and the ms of one call of each collective (on the 2×2
+              mesh also on CPU tensors, gloo's own cost); each case
+              its seconds, every rank's ``sub_matmul`` launches (each
+              exactly as many as its path makes) and its COMM_STAT;
+12. bench   — the ported benchmark runner (``eigenexa_tpu_torch.bench``):
               ``run_input_file`` on ``benchmarks/IN`` and
               ``benchmarks/IN_GEV`` (every line n = 256) at f32 and f64,
               each report printed as a ``bench`` JSON line, every
@@ -102,7 +123,7 @@ result line:
               BENCH_N=8192 f32 without its large extras: exit 0, a last
               line that parses as JSON, its residual, orthogonality,
               eigenvalue and bitwise-rerun flags all true;
-12. large   — Frank n = 32768 f32 through the memory rule ("auto", which
+13. large   — Frank n = 32768 f32 through the memory rule ("auto", which
               prints the reduction it chose and the free memory it read):
               ``eigen_s`` twice (bitwise equal) and ``eigen_sx`` once, each
               with residual, orthogonality (Z in blocks of 4096 columns)
@@ -136,6 +157,9 @@ turns, and ``tridiagonalize`` alone on a donated working matrix) and
 ``memory`` (the whole-solve peak device memory of both reductions of
 ``eigen_s`` and ``eigen_sx`` at n = 8192, 16384 and 32768: the constants
 of the memory rule, ``householder.PEAK_N2`` and ``PEAK_MERGE``).
+
+``python3 chip_smoke.py --dist`` runs the dist phase alone after the build
+and prints no result line.
 
 ``python3 chip_smoke.py --trd-profile N`` profiles one reduction of each
 implementation and each driver (``eigen_s``'s TRD-BLK, ``eigen_sx``'s
@@ -431,7 +455,9 @@ def kernel_cases(n_main: int, n_win: int, big: int = BIG,
 
     The main paths' shapes: the first rolled TRD trailing update (m = n =
     N − 64, k = 2·64), a full WY block of the rolled path (m = n = N,
-    k = 128) and of the windowed path's size; a ragged case; an in-place
+    k = 128) and of the windowed path's size, a rank's block on the dist
+    phase's 2×2 mesh at N_DIST (every panel's update and WY block there:
+    m = n = N_DIST / 2, k = 128); a ragged case; an in-place
     strided view.  Then what the f32 128-tile kernel has to get right at
     its edges: a wide view whose last column quad straddles n, the same
     with an odd leading dimension (no 16-byte access to B at all), k below
@@ -441,6 +467,7 @@ def kernel_cases(n_main: int, n_win: int, big: int = BIG,
         ("rank2k", n_main - 64, n_main - 64, 128, None),
         ("wy", n_main, n_main, 128, None),
         ("wy_windowed_path", n_win, n_win, 128, None),
+        ("dist_block", N_DIST // 2, N_DIST // 2, 128, None),
         ("ragged", 1000, 777, 100, None),
         ("inplace_view", 1063, 1063, 128, (37, 0, 0)),
         ("wide_view", big - 24, big - 127, 128, (0, 103, 0)),
@@ -885,7 +912,7 @@ def frank_bands(device, n: int) -> dict:
 
 
 def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
-                timed: bool = True, samples: int = 32):
+                timed: bool = True, samples: int = 32, host=None):
     """Compare sturm_bisect with its plain version, bit for bit, on the
     tridiagonal (band 1) and the pentadiagonal (band 2) of Frank
     reductions: the bisection of modes N (70 steps from the Gershgorin
@@ -896,15 +923,17 @@ def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
     against the plain version on the same device; at n_large `samples`
     indices (n // 3 and others spread over the spectrum) against the plain
     version on copies on the host's CPU (each index's bracket evolves
-    alone).  Timed: the kernel's call and device
-    time at n_large, the plain version's at n_small, the library's
-    eigenvalues of the dense matrix, and the bound: the recurrence's f64
-    operations at the FP64 CUDA-core peak.  Returns one row per case."""
+    alone).  With `host` (an executor of worker processes) those host runs
+    go there, beside the phases that follow, and their rows carry the
+    pending result until :func:`sturm_host_checks` compares them.  Timed:
+    the kernel's call and device time at n_large, the plain version's at
+    n_small, the library's eigenvalues of the dense matrix, and the bound:
+    the recurrence's f64 operations at the FP64 CUDA-core peak.  Returns
+    one row per case."""
     import torch
     from eigenexa_tpu_torch.ops import band, kernels, sturm
 
     rows = []
-    cpu = torch.device("cpu")
     for n in (n_small, n_large):
         bands = frank_bands(device, n)
         for b, (d, e1, e2) in bands.items():
@@ -921,32 +950,30 @@ def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
                 got = kernels.sturm_bisect(*args)
                 _sync(device)
                 kept = not valid or float(got[n // 3]) == float(w0[n // 3])
-                idx = None
-                on = device
+                row = {"name": "sturm_bisect", "case": f"{op}_band{b}",
+                       "dtype": "float64", "n": n, "band": b,
+                       "n_iter": n_iter}
                 if n == n_large:
                     spread = torch.linspace(0, n - 1, samples - 1).round()
                     idx = torch.cat([spread.long(), torch.tensor([n // 3])])
-                    on = cpu
+                    row.update(indices_checked=int(idx.numel()),
+                               plain_on="cpu")
+                    on_host = [None if x is None else
+                               (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                                else x) for x in args] + [idx.numpy()]
+                    pending = (host.submit(_sturm_plain_on_host, *on_host)
+                               if host is not None else None)
+                    plain = (None if pending is not None else
+                             torch.from_numpy(_sturm_plain_on_host(*on_host)))
                     got = got.cpu()[idx]
-                plain_args = [None if x is None else
-                              (x.to(on) if isinstance(x, torch.Tensor)
-                               else x) for x in args]
-                t0 = time.perf_counter()
-                plain = kernels._sturm_bisect_ref(*plain_args, idx=idx)
-                _sync(on)
-                plain_s = time.perf_counter() - t0
-                got, plain = got.cpu(), plain.cpu()
-                equal = bool(torch.equal(got, plain))
-                err = float((got - plain).abs().max())
-                row = {"name": "sturm_bisect", "case": f"{op}_band{b}",
-                       "dtype": "float64", "n": n, "band": b,
-                       "n_iter": n_iter, "indices_checked": int(
-                           n if idx is None else idx.numel()),
-                       "plain_on": on.type, "max_abs_err": err,
-                       "bitwise_equal": equal,
-                       "failed_bracket_keeps_w0": kept}
-                if timed and n == n_small:
-                    row["plain_ms"] = plain_s * 1e3
+                else:
+                    row.update(indices_checked=n, plain_on=device.type)
+                    t0 = time.perf_counter()
+                    plain = kernels._sturm_bisect_ref(*args)
+                    _sync(device)
+                    if timed:
+                        row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                    pending = None
                 if timed and n == n_large:
                     def kernel(args=args):
                         return kernels.sturm_bisect(*args)
@@ -959,11 +986,69 @@ def sturm_phase(device, n_small: int = N_STURM, n_large: int = N_F64,
                     row.update(step_ops=STURM_STEP_OPS[b], operations=ops,
                                bound_ms=ops / PEAK_FP64_CUDA_CORES * 1e3,
                                bound_by="operations")
-                rows.append(_report(row, equal and kept,
-                                    "differs from its plain version"))
+                row["failed_bracket_keeps_w0"] = kept
+                if pending is None:
+                    rows.append(_sturm_check(row, got.cpu(), plain.cpu()))
+                else:
+                    rows.append({**row, "pending": (pending, got.cpu())})
             del dense, library
         del bands
     return rows
+
+
+def _sturm_plain_on_host(d, e1, e2, a0, b0, n_iter, valid, w0, idx):
+    """The plain sturm_bisect at indices `idx` on the host's CPU (numpy in
+    and out, so that a worker process can run it)."""
+    import torch
+    from eigenexa_tpu_torch.ops import kernels
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    return kernels._sturm_bisect_ref(t(d), t(e1), t(e2), t(a0), t(b0),
+                                     n_iter, valid, t(w0), idx=t(idx)).numpy()
+
+
+def _sturm_check(row: dict, got, plain) -> dict:
+    """A sturm_phase row with its comparison: bitwise equal, and a failed
+    bracket keeping its w0."""
+    import torch
+
+    equal = bool(torch.equal(got, plain))
+    row.update(max_abs_err=float((got - plain).abs().max()),
+               bitwise_equal=equal)
+    return _report(row, equal and row["failed_bracket_keeps_w0"],
+                   "differs from its plain version")
+
+
+def sturm_host_checks(rows) -> list:
+    """Wait for the host runs that :func:`sturm_phase` left pending in
+    `rows` and compare them (in place); returns `rows`."""
+    import torch
+
+    for i, row in enumerate(rows):
+        if "pending" in row:
+            pending, got = row.pop("pending")
+            rows[i] = _sturm_check(
+                row, got, torch.from_numpy(pending.result(timeout=900)))
+    return rows
+
+
+def _host_worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def host_workers(count: int = 2):
+    """Worker processes (spawned: the parent holds a CUDA context) for the
+    plain versions that run on the host's CPU."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        count, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_host_worker_init)
 
 
 def _check_solution(label, a, w, z, w_true, others, col_chunk: int = 0):
@@ -1015,6 +1100,7 @@ def slice_phase(device, n: int):
     counts.append(_take_launches(kernels))
     w3, z3, prof = eigen_s(a, profile=True)
     counts.append(_take_launches(kernels))
+    TIMES["slice_warm"] = warm.elapsed
     print(f"slice: Frank n={n} f32 eigen_s cold {cold.elapsed:.4f} s, warm "
           f"{warm.elapsed:.4f} s = {warm.gflops:.2f} GFLOP/s (flop_model "
           f"{warm.flops:.6g}), profiled {prof.elapsed:.4f} s", flush=True)
@@ -1537,6 +1623,277 @@ def gev_phase(device, n: int = N_F64):
     return counts[0], counts_n
 
 
+# the dist phase: the 1×1 NCCL mesh solves Frank N_SLICE f32 twice and
+# N_DIST_H at c128 (eigen_h) and f64 (eigen_gev); the 2×2 gloo mesh, its
+# four ranks on the one card, N_DIST (eigen_s f32 and f64) and
+# N_DIST_SMALL (eigen_h c64, eigen_gev f64 modes A and N, K_DIST
+# independent solves), which the 1×1 mesh solves too, for w
+N_DIST = 2048
+N_DIST_SMALL = 1024
+N_DIST_H = 4096
+K_DIST = 5
+DIST_TIMEOUT = 900
+# w of the 2×2 mesh against the 1×1 mesh's, × max(1, max|w|): the CPU
+# tests' bounds (tests/test_torch_dist.py)
+DIST_W_TOL = {"float32": 1e-5, "complex64": 1e-5, "float64": 1e-12,
+              "complex128": 1e-12}
+TIMES = {}   # warm seconds of earlier phases, for the dist phase's lines
+
+
+def expected_dist_launches(n: int, mesh_shape=(1, 1), trbak: bool = True,
+                           nb_f: int = NB_F, nb_b: int = NB_B) -> int:
+    """sub_matmul launches of one distributed solve on each rank: one a
+    panel of the padded N (every panel updates the whole block), one a WY
+    block of the back-transform where the mode runs it."""
+    from eigenexa_tpu_torch.parallel.distributed import padded_size
+
+    big = padded_size(n, *mesh_shape, nb_f)
+    return big // nb_f + (-(-(big - 1) // nb_b) if trbak else 0)
+
+
+def dist_launches(driver: str, n: int, mode: str, shape, rank: int) -> int:
+    """sub_matmul launches of one run of a dist case on `rank`: a GEV
+    solve is two distributed solves (mode N: the second without its
+    back-transform); rank r of the independent solves runs the rolled
+    single-device eigen_s on problems r, r + P, …."""
+    one = expected_dist_launches(n, shape)
+    if driver == "ind":
+        return expected_launches(n) * len(range(rank, K_DIST,
+                                                shape[0] * shape[1]))
+    if driver == "gev":
+        return one + (one if mode == "A" else
+                      expected_dist_launches(n, shape, trbak=False))
+    return one
+
+
+def dist_cases(shape):
+    """(label, driver, n, dtype, mode, runs) of a dist-phase mesh."""
+    small = [("eigen_s f32", "s", N_DIST, "float32", "A"),
+             ("eigen_s f64", "s", N_DIST, "float64", "A"),
+             ("eigen_h c64", "h", N_DIST_SMALL, "complex64", "A"),
+             ("eigen_gev A", "gev", N_DIST_SMALL, "float64", "A"),
+             ("eigen_gev N", "gev", N_DIST_SMALL, "float64", "N"),
+             ("independent", "ind", N_DIST_SMALL, "float32", "A")]
+    if shape == (1, 1):
+        return ([("eigen_s f32 n8192", "s", N_SLICE, "float32", "A", 2),
+                 ("eigen_h c128", "h", N_DIST_H, "complex128", "A", 1),
+                 ("eigen_gev f64", "gev", N_DIST_H, "float64", "A", 1)]
+                + [case + (1,) for case in small])
+    return [case + (2,) for case in small]
+
+
+def _dist_inputs(driver: str, n: int, dtype: str, device):
+    """(A, B or None, the exact spectrum or None) of a dist case."""
+    import torch
+    from eigenexa_tpu_torch.testing import (designed, frank,
+                                            frank_hermitian, frank_spectrum,
+                                            random_symmetric)
+
+    dt = getattr(torch, dtype)
+    if driver == "h":
+        return (frank_hermitian(n, dt, device=device), None,
+                frank_spectrum(n, torch.float64))
+    if driver == "ind":
+        return (torch.stack([random_symmetric(n, dt, seed=i, device=device)
+                             for i in range(K_DIST)]), None, None)
+    b = (designed(torch.linspace(1.0, 2.0, n, dtype=torch.float64), seed=0,
+                  device=device).to(dt) if driver == "gev" else None)
+    return frank(n, dt, device), b, frank_spectrum(n, torch.float64)
+
+
+def _dist_check(label, driver, a, b, w, z, w_true, mode, others) -> None:
+    """The checks of one dist case on the gathered Z (rank 0)."""
+    import torch
+    from eigenexa_tpu_torch.testing import (b_orthogonality_check,
+                                            gev_residual_check,
+                                            orthogonality_check,
+                                            residual_check)
+
+    if driver == "s" and a.dtype == torch.float32:
+        same = _check_solution(label, a, w, z, w_true, others)
+        if not all(same.values()):
+            raise AssertionError(f"{label}: reruns differ {same}")
+    elif driver == "s":
+        _check_f64(label, a, w, z, w_true)
+    elif driver == "h":
+        _check_hermitian(label, a, w, z, w_true,
+                         strict=a.dtype == torch.complex128)
+    elif driver == "gev" and mode == "N":
+        print(f"{label}: w {w.shape}, finite "
+              f"{bool(torch.isfinite(w).all())}", flush=True)
+        if z is not None or not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"{label} failed")
+    elif driver == "gev":
+        res, orth = gev_residual_check(a, b, z, w), \
+            b_orthogonality_check(z, b)
+        print(f"{label} checks: {res} {orth}", flush=True)
+        if not (res.passed and orth.passed):
+            raise AssertionError(f"{label} checks failed")
+    else:
+        rows = [(residual_check(a[i], z[i], w[i]),
+                 orthogonality_check(z[i])) for i in range(a.shape[0])]
+        print(f"{label} checks: {rows}", flush=True)
+        if not all(r.passed and o.passed for r, o in rows):
+            raise AssertionError(f"{label} checks failed")
+
+
+def _collective_ms(mesh, on=None) -> dict:
+    """ms of one call of each collective over the grid group of this mesh
+    (a one-rank communicator on 1×1), on tensors on `on` (default: the
+    mesh's device): all_gather of 8 values a rank (what each sum and
+    broadcast of the solve makes) and of 2048, all_reduce MAX of 1 (the
+    scaling) and, for comparison, all_reduce SUM of 8; 200 calls each, the
+    device drained after them."""
+    import torch
+    import torch.distributed as dist
+
+    group, dev = mesh.grid_group, on or mesh.device
+    small = torch.ones(8, dtype=torch.float32, device=dev)
+    small_parts = [torch.empty_like(small) for _ in range(mesh.size)]
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    piece = torch.ones(2048, dtype=torch.float32, device=dev)
+    parts = [torch.empty_like(piece) for _ in range(mesh.size)]
+    calls = {"all_gather_8": lambda: dist.all_gather(small_parts, small,
+                                                     group=group),
+             "all_reduce_sum_8": lambda: dist.all_reduce(small, group=group),
+             "all_reduce_max_1": lambda: dist.all_reduce(
+                 one, op=dist.ReduceOp.MAX, group=group),
+             "all_gather_2048": lambda: dist.all_gather(parts, piece,
+                                                        group=group)}
+    out = {}
+    for name, call in calls.items():
+        call()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        _sync(dev)
+        out[name] = (time.perf_counter() - t0) / 200 * 1e3
+    return out
+
+
+def dist_rank(mesh, cases):
+    """One rank of a dist-phase mesh: the calibration, each collective's
+    time, then every case `runs` times, with this rank's launches and
+    seconds a run; rank 0 checks the gathered Z.  Returns {label: …}."""
+    import torch
+    from eigenexa_tpu_torch.ops import kernels
+    from eigenexa_tpu_torch.parallel import distributed as D
+    from eigenexa_tpu_torch.parallel.collectives import calibrate_overheads
+
+    dev = mesh.device
+    out = {"calibrate": calibrate_overheads(mesh),
+           "collective_ms": _collective_ms(mesh)}
+    if mesh.backend == "gloo" and dev.type == "cuda":
+        # the same calls on CPU tensors: what gloo's staging of CUDA
+        # tensors costs beside its own messages
+        out["collective_ms_cpu"] = _collective_ms(mesh, torch.device("cpu"))
+    drivers = {"s": D.distributed_eigen_s, "h": D.distributed_eigen_h}
+    for label, driver, n, dtype, mode, runs in cases:
+        a, b, w_true = _dist_inputs(driver, n, dtype, dev)
+        runs_out = []
+        for _ in range(runs):
+            _reset_launches(kernels)
+            t0 = time.perf_counter()
+            if driver == "ind":
+                w, z = D.independent_solves(a, mesh)
+                stats = None
+            elif driver == "gev":
+                w, z, info = D.distributed_eigen_gev(a, b, mesh, mode=mode,
+                                                     with_info=True)
+                stats = info.comm_stats.report()
+            else:
+                w, z, info = drivers[driver](a, mesh, with_info=True)
+                stats = info.comm_stats.report()
+            _sync(dev)
+            runs_out.append((w, z, time.perf_counter() - t0,
+                             _take_launches(kernels), stats))
+        same = all(torch.equal(w, r[0]) and (z is None or torch.equal(z,
+                                                                     r[1]))
+                   for r in runs_out)
+        # gathers are collectives: every rank makes them, rank 0 checks
+        if driver not in ("ind", "gev") or (driver == "gev" and mode == "A"):
+            z = D.gather_matrix(z, mesh, (n, n))
+        others = ({"rerun": (runs_out[0][0], D.gather_matrix(
+            runs_out[0][1], mesh, (n, n)))} if driver == "s" and runs > 1
+            and dtype == "float32" else {})
+        if mesh.index == 0:
+            _dist_check(f"dist {mesh.px}x{mesh.py} {label}", driver, a, b,
+                        w, z, w_true, mode, others)
+        out[label] = {"w": w, "seconds": [r[2] for r in runs_out],
+                      "launches": [r[3] for r in runs_out],
+                      "comm_stats": runs_out[0][4], "bitwise": same}
+        del a, b, runs_out, w, z, others
+        _empty_cache(dev)
+    return out
+
+
+DIST_MESHES = (((1, 1), "nccl"), ((2, 2), "gloo"))
+
+
+def dist_phase(device):
+    """The distributed drivers on a 1×1 NCCL mesh and a 2×2 gloo mesh whose
+    four ranks share the card (NCCL refuses two ranks on one card): each
+    mesh's calibration and collective times, every case's checks, seconds,
+    each rank's launches and COMM_STAT, reruns bitwise equal, the 2×2 w
+    within the CPU tests' bounds of the 1×1 w at the same n and dtype.
+    Returns the launches {mesh: [rank 0's launches of the first run of
+    the first case, …]}."""
+    import numpy as np
+    from eigenexa_tpu_torch.parallel import launch
+
+    _empty_cache(device)
+    worlds = {}
+    for shape, backend in DIST_MESHES:
+        t0 = time.perf_counter()
+        worlds[shape] = launch.spawn(dist_rank, shape, backend, device.type,
+                                     dist_cases(shape),
+                                     timeout=DIST_TIMEOUT)
+        name = f"{shape[0]}x{shape[1]} {backend}"
+        first = worlds[shape][0]
+        print(f"dist {name}: {time.perf_counter() - t0:.1f} s with the "
+              f"spawn; calibrate_overheads latency {first['calibrate'][0]:.3e}"
+              f" s, per byte {first['calibrate'][1]:.3e} s; ms a call "
+              f"{json.dumps(first['collective_ms'])}"
+              + (f"; on CPU tensors {json.dumps(first['collective_ms_cpu'])}"
+                 if "collective_ms_cpu" in first else ""), flush=True)
+        for label, driver, n, dtype, mode, runs in dist_cases(shape):
+            ranks = [world[label] for world in worlds[shape]]
+            want = [dist_launches(driver, n, mode, shape, r)
+                    for r in range(len(ranks))]
+            got = [[run["sub_matmul"] for run in rank["launches"]]
+                   for rank in ranks]
+            print(f"dist {name} {label}: n={n} {dtype} mode {mode}, seconds "
+                  f"{[round(t, 4) for t in ranks[0]['seconds']]}, "
+                  f"sub_matmul launches per rank and run {got} (expected "
+                  f"{want}), reruns bitwise equal "
+                  f"{[rank['bitwise'] for rank in ranks]}, COMM_STAT "
+                  f"{json.dumps(ranks[0]['comm_stats'])}", flush=True)
+            if any(g != [w] * runs for g, w in zip(got, want)):
+                raise AssertionError(f"dist {name} {label}: launches {got}")
+            if not all(rank["bitwise"] for rank in ranks):
+                raise AssertionError(f"dist {name} {label}: reruns differ")
+            if any(not np.array_equal(rank["w"], ranks[0]["w"])
+                   for rank in ranks):
+                raise AssertionError(f"dist {name} {label}: w differs "
+                                     "between ranks")
+    warm = worlds[(1, 1)][0]["eigen_s f32 n8192"]["seconds"][-1]
+    print(f"dist: Frank n={N_SLICE} f32 distributed_eigen_s on the 1x1 "
+          f"NCCL mesh warm {warm:.4f} s; eigen_s warm (slice phase) "
+          f"{TIMES.get('slice_warm')}", flush=True)
+    for label, driver, n, dtype, mode, runs in dist_cases((2, 2)):
+        w1, w4 = (worlds[shape][0][label]["w"] for shape in ((1, 1),
+                                                             (2, 2)))
+        tol = DIST_W_TOL[dtype] * max(1.0, float(np.abs(w1).max()))
+        err = float(np.abs(w4 - w1).max())
+        print(f"dist 2x2 against 1x1 {label}: max |w - w_1x1| {err:.3e} "
+              f"(bound {tol:.3e})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"dist {label}: w off the 1x1 mesh's")
+    return {"nccl_1x1": worlds[(1, 1)][0]["eigen_s f32 n8192"]["launches"][0],
+            "gloo_2x2": worlds[(2, 2)][0]["eigen_s f32"]["launches"][0]}
+
+
 BENCH_CHECKS = ("residual", "orthogonality", "gev_residual",
                 "b_orthogonality")
 
@@ -1889,7 +2246,7 @@ def large_window_kernels(device, chosen: dict, m: int = N_LARGE,
 
 
 def _kernels_line(rows, launches, complex_launches, large_launches: int,
-                  bench_launches: dict) -> dict:
+                  bench_launches: dict, dist_launches: dict) -> dict:
     """One entry per kernel at its shape on the f32 windowed path, with an
     ``f64`` object of the same kernel at its shape on the f64 windowed
     path, and for ``sub_matmul`` ``c64`` and ``c128`` objects at the
@@ -1899,7 +2256,11 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
     (`large_launches`); ``sturm_bisect`` (f64 only) at its band-1
     bisection of n = 8192, its plain time at n = 1024, with a ``band2``
     object of the band-2 bisection.  Each entry's ``bench_launches`` are
-    its launches in the bench phase's input files."""
+    its launches in the bench phase's input files; ``sub_matmul``'s
+    ``dist_launches`` its launches on rank 0 of the dist phase's Frank
+    eigen_s (n = 8192 on the 1×1 NCCL mesh, n = 2048 on the 2×2 gloo
+    mesh), and ``dist_block`` its f32 and f64 rows at a rank's block on
+    that 2×2 mesh."""
     main_case = {"sub_matmul": ("wy_windowed_path", "wy"),
                  "symv_lower": ("fused_first_column",
                                 "fused_f64_path_first_column"),
@@ -1924,6 +2285,13 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
                  "f64": {k: row64[k] for k in f64_keys},
                  "bench_launches": bench_launches[name]}
         if name == "sub_matmul":
+            entry["dist_launches"] = {
+                mesh: counts[name] for mesh, counts in dist_launches.items()}
+            entry["dist_block"] = {
+                r["dtype"]: {**{k: r[k] for k in keys},
+                             **{k: r[k] for k in ("m", "n", "k")}}
+                for r in rows if r["name"] == name
+                and r["case"] == "dist_block"}
             entry["n32768"] = {
                 short: {"launches": large_launches,
                         **{k: r[k] for k in keys},
@@ -1981,11 +2349,28 @@ def main() -> int:
         trd_profile(device, int(sys.argv[2]))
         print(gpu)
         return 0
+    if sys.argv[1:2] == ["--dist"]:
+        _timed_phase("dist", dist_phase, device)
+        print(gpu)
+        return 0
     if sys.argv[1:2] == ["--findings"]:
         _timed_phase("compare", compare_phase, device, N_SLICE)
         _timed_phase("memory", memory_phase, device)
         print(gpu)
         return 0
+
+    host = host_workers()
+    try:
+        return _drive(device, gpu, host)
+    finally:
+        host.shutdown(wait=True, cancel_futures=True)
+
+
+def _drive(device, gpu: str, host) -> int:
+    """The kernel phases, then every path (``--kernels``: the kernel phases
+    alone); `host` runs the plain versions that the host's CPU takes."""
+    import torch
+    from eigenexa_tpu_torch.ops import _build
 
     only_kernels = sys.argv[1:2] == ["--kernels"]
     if only_kernels:
@@ -2000,13 +2385,15 @@ def main() -> int:
               ("symv_lower", "symv_lower", symv_phase, (N_WINDOWED, True)),
               ("rank2k_update_window", "rank2k_update_window",
                rank2k_window_phase, (N_WINDOWED, True)),
-              ("sturm_bisect", "sturm_bisect", sturm_phase, ()))
+              ("sturm_bisect", "sturm_bisect", sturm_phase,
+               (N_STURM, N_F64, True, 32, host)))
     rows = []
     for label, kernel, phase, args in phases:
         if kernel in names:
             rows += _timed_phase(f"kernels {label}", phase, device, *args)
     torch.cuda.empty_cache()
     if only_kernels:
+        sturm_host_checks(rows)
         print(gpu)
         return 0
     rolled, rolled_peak = _timed_phase("slice", slice_phase, device, N_SLICE)
@@ -2020,15 +2407,19 @@ def main() -> int:
     modes = _timed_phase("modes", modes_phase, device)
     herm64, herm128 = _timed_phase("hermitian", hermitian_phase, device)
     gev, gev_n = _timed_phase("gev", gev_phase, device)
+    dist = _timed_phase("dist", dist_phase, device)
     bench = _timed_phase("bench", bench_phase, device)
     large_s, large_sx, chosen = _timed_phase("large", large_phase, device)
     rows += _timed_phase("kernels at the large windowed path",
                          large_window_kernels, device, chosen)
+    _timed_phase("sturm_bisect's host checks", sturm_host_checks, rows)
     paths = (("rolled", rolled), ("windowed", windowed),
              ("f64 rolled", rolled64), ("f64 windowed", windowed64),
              ("sx rolled", sx_rolled), ("sx windowed", sx_windowed),
              ("modes N and X", modes), ("hermitian c64", herm64),
              ("hermitian c128", herm128), ("gev", gev), ("gev N", gev_n),
+             ("dist 1x1 nccl", dist["nccl_1x1"]),
+             ("dist 2x2 gloo", dist["gloo_2x2"]),
              ("bench", bench), ("large eigen_s", large_s),
              ("large eigen_sx", large_sx))
     for path, counts in paths:
@@ -2046,7 +2437,7 @@ def main() -> int:
                                           modes["sturm_bisect"]},
                                    {"c64": herm64["sub_matmul"],
                                     "c128": herm128["sub_matmul"]},
-                                   large_s["sub_matmul"], bench)))
+                                   large_s["sub_matmul"], bench, dist)))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,13 @@ Single-device drivers:
 
 Modes N and X of ``eigen_s`` and ``eigen_sx`` bisect with Sturm counts
 (``ops/sturm.py``); mode R runs the D&C alone on saved stage data
-(``utils/stageio.py``).  The JAX package ``eigenexa_tpu`` stays beside it as
+(``utils/stageio.py``).
+
+Distributed drivers (``parallel/``): ``distributed_eigen_s``,
+``distributed_eigen_h`` and ``distributed_eigen_gev`` over a px × py mesh
+of processes joined by ``torch.distributed`` (NCCL, a card a rank; or gloo,
+on the CPU or with the ranks sharing one card), and ``independent_solves``;
+``parallel.launch.spawn`` starts the ranks.  The JAX package ``eigenexa_tpu`` stays beside it as
 the reference the port is held to; this package imports torch and never
 jax.
 
@@ -37,10 +43,20 @@ tensor takes each kernel's plain PyTorch version; a CUDA tensor launches
 the kernel or raises.
 """
 
+from eigenexa_tpu_torch.parallel.distributed import (
+    distributed_eigen_gev,
+    distributed_eigen_h,
+    distributed_eigen_s,
+    gather_matrix,
+    independent_solves,
+)
 from eigenexa_tpu_torch.runtime import (
     EigenContext,
     SolverConfig,
     eigen_free,
+    eigen_get_id,
+    eigen_get_matdims,
+    eigen_get_procs,
     eigen_get_version,
     eigen_init,
     eigen_show_version,
@@ -57,7 +73,13 @@ __all__ = [
     "EigenContext",
     "SolveInfo",
     "SolverConfig",
+    "distributed_eigen_gev",
+    "distributed_eigen_h",
+    "distributed_eigen_s",
     "eigen_free",
+    "eigen_get_id",
+    "eigen_get_matdims",
+    "eigen_get_procs",
     "eigen_get_version",
     "eigen_gev",
     "eigen_h",
@@ -66,4 +88,6 @@ __all__ = [
     "eigen_sx",
     "eigen_show_version",
     "eigh",
+    "gather_matrix",
+    "independent_solves",
 ]

@@ -2,6 +2,8 @@
 reference: benchmark/main2.f)."""
 
 from eigenexa_tpu_torch.bench.runner import (BenchCase, run_case,
-                                          run_input_file)
+                                          run_distributed, run_independent,
+                                          run_input_file, run_mesh_case)
 
-__all__ = ["run_case", "run_input_file", "BenchCase"]
+__all__ = ["run_case", "run_input_file", "BenchCase", "run_distributed",
+           "run_mesh_case", "run_independent"]

@@ -18,8 +18,18 @@ runs on ``--device`` (the card unless ``--device cpu``), in float32 unless
 ``--f64``.  ``--eigh`` times ``torch.linalg.eigh`` on each line's matrix
 after its checks, the incumbent beside the line.
 
+``-x PX PY`` starts PX·PY ranks (``parallel.launch.spawn``) and runs every
+line through the distributed drivers on that mesh: eigen_s, eigen_h and
+GEV lines (an eigen_sx line raises: ROADMAP A17b); rank 0 prints the
+report with the COMM_STAT block (the reference's -x dimX dimY,
+benchmark/main2.f:152-197).  ``-g K`` runs K independent solves of the
+line's problem class over K ranks, or over the -x mesh (main2.f:163-174).
+``--backend`` is ``nccl`` (a card a rank) unless ``gloo`` is asked for
+(the CPU, or every rank on one card).
+
 Usage:  python -m eigenexa_tpu_torch.bench.runner [-f INPUT] [-n N]
             [--mtype K] [--solver S] [--f64] [--profile] [--device DEV]
+            [-x PX PY | -g K] [--backend {nccl,gloo}] [--timeout S]
 """
 
 from __future__ import annotations
@@ -322,6 +332,190 @@ def run_input_file(path: str, ctx=None, dtype=None, printer=print,
     return reports
 
 
+def _mesh_report(case, solver_name, mode, dtype, mesh, info, a, w, z,
+                 w_true, printer, checks_of) -> dict:
+    """The report of a distributed line, with its COMM_STAT block (JAX
+    ``_run_mesh_case``, bench/runner.py:182).  Z is gathered on every rank
+    (a collective); rank 0 alone checks and prints (printer not None)."""
+    from eigenexa_tpu_torch.parallel.distributed import (_mesh_overheads,
+                                                         gather_matrix)
+
+    if z is not None:
+        z = gather_matrix(z, mesh, (case.n, case.nvec))
+    report = {
+        "n": case.n, "nvec": case.nvec, "mode": mode,
+        "matrix": MATRIX_TYPES.get(case.mtype, str(case.mtype)),
+        "solver": solver_name + " (distributed)",
+        "grid": f"{mesh.px}x{mesh.py}", "dtype": _dtype_name(dtype),
+        "elapsed_s": round(info.elapsed, 4), "model_flops": info.flops,
+        "model_gflops": round(info.gflops, 2),
+        "comm_s": round(info.comm_time, 6),
+        "comm_stat": info.comm_stats.report(), "checks": {},
+        "hard_fail": False,
+    }
+    if printer is None:
+        return report
+    report["hard_fail"] = checks_of(report, z)
+    if w_true is not None and mode in ("N", "A", "X"):
+        _check(report, eigenvalue_check(w, w_true))
+    printer(f"--- {report['solver']}  N={case.n} nvec={case.nvec} "
+            f"mode={mode} matrix={report['matrix']} "
+            f"grid={report['grid']} dtype={report['dtype']}")
+    printer(f"    elapsed {report['elapsed_s']} s   "
+            f"model {report['model_gflops']} GFLOP/s   "
+            f"comm {report['comm_s']} s")
+    # COMM_STAT block (eigen_timer_print, src/eigen_devel.F:440-526)
+    for line in info.comm_stats.stat_block(*_mesh_overheads(mesh)):
+        printer("    " + line)
+    for name, chk in report["checks"].items():
+        printer(f"    *** {name:15s} *** : {chk['status']}  "
+                f"({chk['value']:.4g})")
+    return report
+
+
+def _check_mesh_case(case: BenchCase) -> None:
+    if case.solver == 0:
+        raise NotImplementedError(
+            "an eigen_sx line under -x needs distributed_eigen_sx, the "
+            "band-2 half of the distributed layer (ROADMAP A17b)")
+
+
+def run_mesh_case(case: BenchCase, mesh, dtype=None, printer=print,
+                  w_file=None) -> dict:
+    """One benchmark line through the distributed drivers on `mesh`
+    (every rank of it calls this; rank 0 passes the printer, the others
+    None).  eigen_s and eigen_h lines take their modes; a GEV line modes A
+    and N (others run as A, as on one device)."""
+    from eigenexa_tpu_torch.parallel import distributed as D
+
+    _check_mesh_case(case)
+    dtype = dtype or torch.float32
+    cfg = SolverConfig(panel_forward=case.bx, panel_backward=case.by)
+    mode = MODE_MAP.get(case.mode, "A")
+    a, w_true = mat_set(case.n, case.mtype, dtype=dtype, device=mesh.device,
+                        w_file=w_file)
+    if case.solver == 3:
+        if mode not in ("A", "N"):
+            mode = "A"
+        b = designed(torch.linspace(1.0, 2.0, case.n, dtype=torch.float64),
+                     dtype=dtype, device=mesh.device)
+        w, z, info = D.distributed_eigen_gev(a, b, mesh, nvec=case.nvec,
+                                             mode=mode, config=cfg,
+                                             with_info=True)
+
+        def checks_of(report, z):
+            if z is None:
+                return False
+            return (_check(report, gev_residual_check(a, b, z, w, case.nvec))
+                    | _check(report, b_orthogonality_check(z, b,
+                                                           case.nvec)))
+
+        return _mesh_report(case, "eigen_gev", mode, dtype, mesh, info, a, w,
+                            z, None, printer, checks_of)
+    if case.solver == 2:
+        a = a.to(torch.complex128 if dtype == torch.float64
+                 else torch.complex64)
+        drive, name = D.distributed_eigen_h, "eigen_h"
+    else:
+        drive, name = D.distributed_eigen_s, "eigen_s"
+    w, z, info = drive(a, mesh, nvec=case.nvec, mode=mode, config=cfg,
+                       with_info=True)
+
+    def checks_of(report, z):
+        hard = False
+        if z is not None and mode in ("A", "X"):
+            hard |= _check(report, residual_check(a, z, w, case.nvec))
+        if z is not None and mode in ("A", "X", "S", "T"):
+            hard |= _check(report, orthogonality_check(z, case.nvec))
+        return hard
+
+    return _mesh_report(case, name, mode, dtype, mesh, info, a, w, z, w_true,
+                        printer, checks_of)
+
+
+def run_independent(case: BenchCase, k: int, mesh, dtype=None,
+                    printer=print) -> dict:
+    """`-g` analogue: k independent solves of the line's problem class
+    (problem i from seed i), spread over the mesh's ranks (reference:
+    main2.f:163-174, MPI_COMM_SELF grids).  Every rank calls this; rank 0
+    checks and prints."""
+    from eigenexa_tpu_torch.parallel.distributed import independent_solves
+    from eigenexa_tpu_torch.utils.sync import device_sync
+
+    dtype = dtype or torch.float32
+    mode = MODE_MAP.get(case.mode, "A")
+    mats, trues = zip(*(mat_set(case.n, case.mtype, dtype=dtype, seed=i,
+                                device=mesh.device) for i in range(k)))
+    t0 = time.perf_counter()
+    w, z = independent_solves(torch.stack(mats), mesh, nvec=case.nvec,
+                              mode=mode, config=SolverConfig(
+                                  panel_forward=case.bx,
+                                  panel_backward=case.by))
+    device_sync(w, z)
+    elapsed = time.perf_counter() - t0
+    report = {"n": case.n, "k": k, "mode": mode,
+              "solver": f"eigen_s (independent x{k})",
+              "grid": f"{mesh.px}x{mesh.py}",
+              "elapsed_s": round(elapsed, 4), "checks": [],
+              "hard_fail": False}
+    if printer is None:
+        return report
+    for i in range(k):
+        if z is not None:
+            r = residual_check(mats[i], z[i], w[i], case.nvec)
+            o = orthogonality_check(z[i], case.nvec)
+            report["checks"].append({"residual": r.status(),
+                                     "orthogonality": o.status()})
+            report["hard_fail"] |= r.hard_fail or o.hard_fail
+        elif trues[i] is not None:
+            report["checks"].append(
+                {"eigenvalues": eigenvalue_check(w[i], trues[i]).status()})
+    printer(f"--- independent x{k}  N={case.n} grid={report['grid']} "
+            f"elapsed {report['elapsed_s']} s")
+    for i, c in enumerate(report["checks"]):
+        printer(f"    [{i}] " + "  ".join(f"{k2}: {v}"
+                                          for k2, v in c.items()))
+    return report
+
+
+def _rank_run(mesh, cases, dtype_name, independent):
+    """The runner on one rank of a -x or -g mesh: rank 0 collects the
+    printed lines and the reports, the others return None."""
+    dtype = getattr(torch, dtype_name)
+    lines = []
+    printer = lines.append if mesh.index == 0 else None
+    if independent:
+        reports = [run_independent(cases[0], independent, mesh, dtype,
+                                   printer)]
+    else:
+        reports = [run_mesh_case(case, mesh, dtype, printer)
+                   for case in cases]
+    return {"lines": lines, "reports": reports} if printer else None
+
+
+def run_distributed(cases, shape, backend: str, device: str, dtype,
+                    independent: int = 0, timeout: float = 3600.0,
+                    printer=print):
+    """Start the ranks of a `shape` mesh and run the lines `cases` on it
+    (or, with `independent` = K, K independent solves of the first line's
+    class); print rank 0's report; returns its reports.  A hard accuracy
+    failure raises SystemExit after the report, as ``run_input_file``."""
+    from eigenexa_tpu_torch.parallel import launch
+
+    if not independent:
+        for case in cases:
+            _check_mesh_case(case)
+    out = launch.spawn(_rank_run, tuple(shape), backend, device,
+                       list(cases), _dtype_name(dtype), independent,
+                       timeout=timeout)[0]
+    for line in out["lines"]:
+        printer(line)
+    if any(rep["hard_fail"] for rep in out["reports"]):
+        raise SystemExit("hard accuracy failure — aborting (reference "
+                         "behavior: ev_test MPI_Abort)")
+    return out["reports"]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-f", "--input", help="benchmark input file (IN format)")
@@ -339,11 +533,17 @@ def main(argv=None):
                    help="per-stage TRD-BLK/D&C/TRDBAK timing block "
                         "(reference: eigen_s.F:180-276)")
     p.add_argument("-x", "--mesh", type=int, nargs=2, metavar=("PX", "PY"),
-                   help="run distributed over a PX x PY device mesh "
-                        "(reference: main2.f -x dimX dimY; not ported)")
+                   help="run distributed over a PX x PY mesh of ranks "
+                        "(reference: main2.f -x dimX dimY)")
     p.add_argument("-g", "--independent", type=int, metavar="K",
-                   help="K independent solves, one per device "
-                        "(reference: main2.f -g; not ported)")
+                   help="K independent solves over K ranks, or over the "
+                        "-x mesh (reference: main2.f -g)")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                   help="the ranks' backend under -x/-g: nccl (a card a "
+                        "rank, the default) or gloo (the CPU, or every "
+                        "rank on one card)")
+    p.add_argument("--timeout", type=float, default=3600.0,
+                   help="seconds the ranks of -x/-g may take")
     p.add_argument("-L", "--list-matrices", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device of every solve (default cuda)")
@@ -355,11 +555,23 @@ def main(argv=None):
         for k, v in MATRIX_TYPES.items():
             print(f"  {k:3d} : {v}")
         return 0
-    if args.mesh or args.independent:
-        raise NotImplementedError(
-            "-x/--mesh and -g/--independent run the distributed drivers, "
-            "which the port does not have yet (ROADMAP A17)")
     dtype = torch.float64 if args.f64 else torch.float32
+    if args.mesh or args.independent:
+        from eigenexa_tpu_torch.parallel.mesh import factor_grid
+
+        shape = (tuple(args.mesh) if args.mesh
+                 else factor_grid(args.independent))
+        if args.input:
+            with open(args.input) as f:
+                cases = [c for c in map(BenchCase.parse, f) if c is not None]
+        else:
+            cases = [BenchCase(n=args.n, nvec=args.nvec or args.n,
+                               mode=args.mode, mtype=args.mtype,
+                               solver=args.solver)]
+        run_distributed(cases, shape, args.backend, args.device, dtype,
+                        independent=args.independent or 0,
+                        timeout=args.timeout)
+        return 0
     kw = dict(dtype=dtype, profile=args.profile, device=args.device,
               eigh=args.eigh)
     if args.input:

@@ -184,7 +184,7 @@ def wy_apply(z, v, t, out=None):
     streams Z through the fused subtract kernel."""
     s = v.conj().T @ z
     y = t @ s
-    return sub_matmul(z, v, y.conj().T.contiguous(), out=out)
+    return sub_matmul(z, v, y.mH.resolve_conj().contiguous(), out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -63,19 +63,21 @@ _DC_LEAF = 32   # D&C leaf size: 8 merge levels at n = 8192
 @dataclasses.dataclass
 class SolveInfo:
     """Telemetry contract (a(1,1)/a(2,1)/a(3,1) analogue,
-    src/eigen_s.F:284-295).  `comm_time` is 0 on one device; the
-    distributed drivers and their `comm_stats` wait for ROADMAP A17.
-    `stages` holds the TRD-BLK (PRD-BLK for eigen_sx) / D&C (BISECT
-    in mode N) / TRDBAK seconds and flops when the solve ran with
-    profile=True."""
+    src/eigen_s.F:284-295).  `stages` holds the TRD-BLK (PRD-BLK for
+    eigen_sx) / D&C (BISECT in mode N) / TRDBAK seconds and flops when the
+    solve ran with profile=True.  `comm_stats` is the COMM_STAT table
+    (``parallel.collectives.CommStats``, src/eigen_devel.F:98-117) that the
+    distributed drivers fill, and `comm_time` its calibrated time; on one
+    device they are None and 0."""
 
     flops: float = 0.0       # model flops: 4/3·n³ (TRD) + dc + 2·nvec·n²
     elapsed: float = 0.0     # wall seconds for the whole solve
-    comm_time: float = 0.0   # collective seconds (0 on one device)
+    comm_time: float = 0.0   # attributed collective seconds (0 on one)
     n: int = 0
     nvec: int = 0
     mode: str = "A"
     stages: dict = dataclasses.field(default_factory=dict)
+    comm_stats: Optional[object] = None
 
     @property
     def gflops(self) -> float:
@@ -123,8 +125,15 @@ def matrix_scaling(a: torch.Tensor):
     (reference: eigen_scaling, src/eigen_scaling.F:59, and the NaN guard of
     src/eigen_s.F:156-160).  Returns (A·sigma, sigma), sigma a 0-d
     tensor; no host synchronization."""
-    fi = torch.finfo(a.dtype)
-    anrm = a.abs().amax()
+    sigma = scaling_factor(a.abs().amax())
+    return a * sigma, sigma
+
+
+def scaling_factor(anrm: torch.Tensor) -> torch.Tensor:
+    """sigma of :func:`matrix_scaling` from max |A| (a 0-d real tensor;
+    the distributed drivers take it over the grid).  NaN where anrm is not
+    finite."""
+    fi = torch.finfo(anrm.dtype)
     one = torch.ones_like(anrm)
     # thresholds rounded in the input dtype, as the JAX twin computes them
     smlnum = torch.full_like(anrm, fi.tiny) / fi.eps
@@ -132,9 +141,8 @@ def matrix_scaling(a: torch.Tensor):
     rmax = torch.sqrt(one / smlnum)
     sigma = torch.where((anrm > 0) & (anrm < rmin), rmin / anrm,
                         torch.where(anrm > rmax, rmax / anrm, one))
-    sigma = torch.where(torch.isfinite(anrm), sigma,
-                        torch.full_like(anrm, float("nan")))
-    return a * sigma, sigma
+    return torch.where(torch.isfinite(anrm), sigma,
+                       torch.full_like(anrm, float("nan")))
 
 
 def _check_mode(mode: str) -> None:

@@ -233,10 +233,33 @@ def test_incumbent_records_only_cusolvers_refusal(monkeypatch, error,
         assert report == {}
 
 
-@pytest.mark.parametrize("argv", [["-x", "1", "1"], ["-g", "2"]])
-def test_distributed_flags_name_a17(argv):
-    with pytest.raises(NotImplementedError, match="A17"):
-        main(argv + ["-n", "64", "--device", "cpu"])
+@pytest.mark.parametrize("argv", [["-x", "2", "2"], ["-g", "2"]])
+def test_distributed_flags_name_a17(argv, capsys):
+    """-x and -g (ROADMAP A17) run the distributed drivers over gloo ranks
+    on the CPU: rank 0's report, with -x its COMM_STAT block."""
+    assert main(argv + ["-n", "64", "--device", "cpu", "--f64",
+                        "--backend", "gloo", "--timeout", "120"]) == 0
+    out = capsys.readouterr().out
+    if argv[0] == "-x":
+        assert "--- eigen_s (distributed)  N=64" in out and "grid=2x2" in out
+        assert "COMM_STAT" in out and "  total    count" in out
+        assert "*** residual        *** : PASSED" in out
+        assert "*** orthogonality   *** : PASSED" in out
+    else:
+        assert "--- independent x2  N=64 grid=1x2" in out
+        assert out.count("residual: PASSED  orthogonality: PASSED") == 2
+
+
+def test_eigen_sx_line_under_x_names_a17b():
+    with pytest.raises(NotImplementedError, match="A17b"):
+        main(["-x", "2", "2", "-n", "64", "--solver", "0", "--device", "cpu",
+              "--backend", "gloo"])
+
+
+def test_distributed_flags_keep_the_backend_rule():
+    # nccl, the default, needs a card a rank: no quiet switch to gloo
+    with pytest.raises(ValueError, match="gloo"):
+        main(["-x", "2", "2", "-n", "64", "--device", "cpu"])
 
 
 def test_main_runs_on_the_cpu_only_when_asked(capsys):

@@ -730,3 +730,21 @@ def test_bench_runner_line_on_the_card(cuda):
     assert rep["checks"]["orthogonality"]["status"] == "PASSED"
     assert list(rep["stages"]) == ["TRD-BLK", "D&C", "TRDBAK"]
     assert not rep["hard_fail"]
+
+
+@pytest.mark.parametrize("shape,backend", [((1, 1), "nccl"),
+                                           ((2, 2), "gloo")])
+def test_distributed_eigen_s_on_the_card(cuda, shape, backend):
+    """A 1×1 NCCL mesh (a real one-rank communicator) and a 2×2 gloo mesh
+    with its four ranks on cuda:0: Frank n = 1024 f32 passes its checks on
+    every rank, and every rank launched ``sub_matmul``."""
+    import _torch_dist_cases as cases
+    from eigenexa_tpu_torch.parallel import launch
+
+    out = launch.spawn(cases.card_solve, shape, backend, "cuda", 1024,
+                       timeout=300)
+    w0 = out[0]["w"]
+    for got in out:
+        assert got["residual"] < 768 and got["orthogonality"] < 8, got
+        assert got["launches"] > 0
+        assert np.array_equal(got["w"], w0)

@@ -650,7 +650,8 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("phase", ["kernel", "same_bits", "symv",
-                                   "rank2k_window", "sturm"])
+                                   "rank2k_window", "sturm",
+                                   "sturm_workers"])
 def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
     """The card script's kernel phases at small sizes on CPU tensors (the
     plain versions, nothing timed): every case builds its operands, views
@@ -696,9 +697,22 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
         assert len(rows) == 12
         assert sum(r["fused_panel_columns"] == cs.NB_F - 1
                    for r in rows) == 3
-    elif phase == "sturm":
-        # every index at the small n, a sample at the large one
-        rows = cs.sturm_phase(cpu, 40, 90, timed=False, samples=8)
+    elif phase in ("sturm", "sturm_workers"):
+        # every index at the small n, a sample at the large one; with
+        # workers, as on the card, the sample's plain runs go to a worker
+        # process and their rows wait until sturm_host_checks
+        host = None
+        if phase == "sturm_workers":
+            monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+            host = cs.host_workers(1)
+        try:
+            rows = cs.sturm_phase(cpu, 40, 90, timed=False, samples=8,
+                                  host=host)
+            assert sum("pending" in r for r in rows) == (4 if host else 0)
+            cs.sturm_host_checks(rows)
+        finally:
+            if host is not None:
+                host.shutdown(wait=True, cancel_futures=True)
         assert [(r["n"], r["case"], r["indices_checked"]) for r in rows] == [
             (n, f"{op}_band{b}", k) for n, k in ((40, 40), (90, 8))
             for b in (1, 2) for op in ("bisect", "refine")]
@@ -890,3 +904,23 @@ def test_chip_smoke_large_phase_passes_on_the_cpu(monkeypatch):
         "large_first_panel"]
     assert all(r["max_abs_err"] <= r["bound"] for r in rows)
     assert tk.LAUNCHES == before
+
+
+def test_chip_smoke_dist_phase_passes_on_the_cpu(monkeypatch):
+    """The card script's dist phase at small sizes with both meshes on
+    gloo CPU ranks: every case's checks, reruns bitwise equal, the same w
+    on every rank, and the 2×2 mesh's w within the bounds of the 1×1
+    mesh's.  CPU tensors launch nothing, so the launch counts are patched
+    to 0."""
+    cs = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)   # the ranks load it
+    for name, value in (("N_SLICE", 96), ("N_DIST", 64),
+                        ("N_DIST_SMALL", 48), ("N_DIST_H", 64),
+                        ("DIST_TIMEOUT", 120)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "DIST_MESHES", (((1, 1), "gloo"),
+                                            ((2, 2), "gloo")))
+    monkeypatch.setattr(cs, "dist_launches", lambda *args: 0)
+    zeros = dict.fromkeys(tk.LAUNCHES, 0)
+    assert cs.dist_phase(torch.device("cpu")) == {"nccl_1x1": zeros,
+                                                  "gloo_2x2": zeros}
