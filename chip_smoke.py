@@ -96,23 +96,30 @@ result line:
 11. dist    — the distributed drivers (``eigenexa_tpu_torch.parallel``),
               each mesh's ranks started by ``parallel.launch.spawn``: a 1×1
               mesh on NCCL (a real one-rank communicator) solves Frank
-              n = 8192 f32 with ``distributed_eigen_s`` twice (bitwise
-              equal, the checks, its warm time beside the slice phase's),
+              n = 8192 f32 with ``distributed_eigen_s`` and with
+              ``distributed_eigen_sx``, each twice (bitwise equal, the
+              checks, the warm time beside the single-device phase's),
               ``distributed_eigen_h`` on the phased Frank matrix at c128
               n = 4096 and ``distributed_eigen_gev`` f64 n = 4096 (Frank,
               ``designed(linspace(1, 2, n))``); a 2×2 mesh on gloo, its
               four ranks on the one card, solves ``distributed_eigen_s``
-              Frank n = 2048 f32 and f64, ``distributed_eigen_h`` c64
-              n = 1024, ``distributed_eigen_gev`` f64 n = 1024 modes A and
-              N and ``independent_solves`` of 5 problems n = 1024, each
-              twice (the reruns bitwise equal) with its checks, and w
-              within the CPU tests' bounds of the 1×1 mesh's at the same n
-              and dtype.
+              Frank n = 1024 f32 and f64, ``distributed_eigen_sx`` Frank
+              n = 1024 f32, n = 512 f64 and n = 512 in mode N (band-2
+              ``sturm_bisect``), ``distributed_eigen_h`` c64 n = 1024,
+              ``distributed_eigen_gev`` f64 n = 512 modes A and N and
+              ``independent_solves`` of 5 problems n = 1024, each twice
+              (the reruns bitwise equal; mode N once) with its checks, and
+              w within the CPU tests' bounds of the 1×1 mesh's at the same
+              n and dtype; then ``entry.dryrun_rank`` runs the four
+              distributed drivers at n = 256 on the 2×2 mesh against the
+              reference thresholds.
               Each mesh prints ``calibrate_overheads``' latency and per-byte
               cost and the ms of one call of each collective (on the 2×2
               mesh also on CPU tensors, gloo's own cost); each case
-              its seconds, every rank's ``sub_matmul`` launches (each
+              its seconds, every rank's launches of each kernel (each
               exactly as many as its path makes) and its COMM_STAT;
+    entry   — ``entry.entry()``'s fn once: ``eigen_s`` on Frank n = 256
+              f32, its checks and launches;
 12. bench   — the ported benchmark runner (``eigenexa_tpu_torch.bench``):
               ``run_input_file`` on ``benchmarks/IN`` and
               ``benchmarks/IN_GEV`` (every line n = 256) at f32 and f64,
@@ -158,8 +165,8 @@ turns, and ``tridiagonalize`` alone on a donated working matrix) and
 ``eigen_s`` and ``eigen_sx`` at n = 8192, 16384 and 32768: the constants
 of the memory rule, ``householder.PEAK_N2`` and ``PEAK_MERGE``).
 
-``python3 chip_smoke.py --dist`` runs the dist phase alone after the build
-and prints no result line.
+``python3 chip_smoke.py --dist`` runs the dist and entry phases alone after
+the build and prints no result line.
 
 ``python3 chip_smoke.py --trd-profile N`` profiles one reduction of each
 implementation and each driver (``eigen_s``'s TRD-BLK, ``eigen_sx``'s
@@ -457,7 +464,8 @@ def kernel_cases(n_main: int, n_win: int, big: int = BIG,
     N − 64, k = 2·64), a full WY block of the rolled path (m = n = N,
     k = 128) and of the windowed path's size, a rank's block on the dist
     phase's 2×2 mesh at N_DIST (every panel's update and WY block there:
-    m = n = N_DIST / 2, k = 128); a ragged case; an in-place
+    m = n = N_DIST / 2, k = 128; ``complex_kernel_cases`` has it for
+    eigen_h c64); a ragged case; an in-place
     strided view.  Then what the f32 128-tile kernel has to get right at
     its edges: a wide view whose last column quad straddles n, the same
     with an odd leading dimension (no 16-byte access to B at all), k below
@@ -544,13 +552,15 @@ def complex_kernel_cases(n_main: int, rule: int, ragged=(1000, 777)):
     """(label, m, n, k, view) of the complex kernels, as
     :func:`kernel_cases`: the Hermitian path's first rolled panel, in place
     on the view ``work[64:, 64:]`` of the n_main × n_main working matrix,
-    a full WY block of its back-transform, a ragged shape with k = 5 and
+    a full WY block of its back-transform, a rank's block of the dist
+    phase's 2×2 eigen_h (``dist_block``), a ragged shape with k = 5 and
     with k = 130, the latter in place on an offset view with an odd
     leading dimension, and the squares just under and at `rule`, the
     smallest that the launch rule gives the larger-tile kernel."""
     m, n = ragged
     return [("rank2k", n_main - 64, n_main - 64, 128, (64, 0, 0)),
             ("wy", n_main, n_main, 128, None),
+            ("dist_block", N_DIST // 2, N_DIST // 2, 128, None),
             ("ragged_k5", m, n, 5, None),
             ("ragged_k130", m, n, 130, (37, 3, 2)),
             ("under_rule", rule - 1, rule - 1, 128, None),
@@ -1255,6 +1265,7 @@ def _solve_sx(device, a, impl: str, label: str, want: dict,
         counts = _take_launches(kernels)
     finally:
         householder.TRD_IMPL = old
+    TIMES[f"sx {label}"] = info.elapsed
     print(f"sx: {label} {info.elapsed:.4f} s = {info.gflops:.2f} GFLOP/s; "
           f"peak device memory above the resident {resident} bytes: {peak} "
           f"bytes; launches {json.dumps(counts)} (expected "
@@ -1623,14 +1634,18 @@ def gev_phase(device, n: int = N_F64):
     return counts[0], counts_n
 
 
-# the dist phase: the 1×1 NCCL mesh solves Frank N_SLICE f32 twice and
-# N_DIST_H at c128 (eigen_h) and f64 (eigen_gev); the 2×2 gloo mesh, its
-# four ranks on the one card, N_DIST (eigen_s f32 and f64) and
-# N_DIST_SMALL (eigen_h c64, eigen_gev f64 modes A and N, K_DIST
-# independent solves), which the 1×1 mesh solves too, for w
-N_DIST = 2048
-N_DIST_SMALL = 1024
+# the dist phase: the 1×1 NCCL mesh solves Frank N_SLICE f32 twice with
+# eigen_s and with eigen_sx, and N_DIST_H at c128 (eigen_h) and f64
+# (eigen_gev); the 2×2 gloo mesh, its four ranks on the one card, N_DIST
+# (eigen_s f32 and f64, eigen_sx f32, eigen_h c64, K_DIST independent
+# solves) and N_DIST / 2 (eigen_sx f64 and mode N, eigen_gev f64 modes A
+# and N), which the 1×1 mesh solves too, for w, and the four-driver dryrun
+# at N_DRYRUN.  The 2×2 mesh's time is gloo's, about 10 collectives a
+# column at 2.4–4.5 ms each: these sizes keep the whole script inside its
+# limit on a slow host (PERF.md § 6)
+N_DIST = 1024
 N_DIST_H = 4096
+N_DRYRUN = 256
 K_DIST = 5
 DIST_TIMEOUT = 900
 # w of the 2×2 mesh against the 1×1 mesh's, × max(1, max|w|): the CPU
@@ -1641,45 +1656,57 @@ TIMES = {}   # warm seconds of earlier phases, for the dist phase's lines
 
 
 def expected_dist_launches(n: int, mesh_shape=(1, 1), trbak: bool = True,
-                           nb_f: int = NB_F, nb_b: int = NB_B) -> int:
+                           band: int = 1, nb_f: int = NB_F,
+                           nb_b: int = NB_B) -> int:
     """sub_matmul launches of one distributed solve on each rank: one a
-    panel of the padded N (every panel updates the whole block), one a WY
-    block of the back-transform where the mode runs it."""
-    from eigenexa_tpu_torch.parallel.distributed import padded_size
+    panel of the padded N (every panel updates the whole block; band 2
+    pads by its own rule), one a WY block of the back-transform where the
+    mode runs it."""
+    from eigenexa_tpu_torch.parallel.distributed import (padded_size,
+                                                         panel_width)
 
-    big = padded_size(n, *mesh_shape, nb_f)
-    return big // nb_f + (-(-(big - 1) // nb_b) if trbak else 0)
+    big = padded_size(n, *mesh_shape, nb_f, band)
+    return (big // panel_width(nb_f, band)
+            + (-(-(big - 1) // nb_b) if trbak else 0))
 
 
-def dist_launches(driver: str, n: int, mode: str, shape, rank: int) -> int:
-    """sub_matmul launches of one run of a dist case on `rank`: a GEV
+def dist_launches(driver: str, n: int, mode: str, shape, rank: int) -> dict:
+    """Launches of each kernel in one run of a dist case on `rank`: a GEV
     solve is two distributed solves (mode N: the second without its
-    back-transform); rank r of the independent solves runs the rolled
-    single-device eigen_s on problems r, r + P, …."""
-    one = expected_dist_launches(n, shape)
+    back-transform, and bisected); rank r of the independent solves runs
+    the rolled single-device eigen_s on problems r, r + P, …; modes N and
+    X launch ``sturm_bisect`` once."""
     if driver == "ind":
-        return expected_launches(n) * len(range(rank, K_DIST,
-                                                shape[0] * shape[1]))
+        return _want(sub_matmul=expected_launches(n) * len(
+            range(rank, K_DIST, shape[0] * shape[1])))
+    one = expected_dist_launches(n, shape)
     if driver == "gev":
-        return one + (one if mode == "A" else
-                      expected_dist_launches(n, shape, trbak=False))
-    return one
+        return _want(sub_matmul=one + expected_dist_launches(
+            n, shape, trbak=mode == "A"), sturm_bisect=int(mode == "N"))
+    return _want(sub_matmul=expected_dist_launches(
+        n, shape, trbak=mode != "N", band=2 if driver == "sx" else 1),
+        sturm_bisect=int(mode in ("N", "X")))
 
 
 def dist_cases(shape):
     """(label, driver, n, dtype, mode, runs) of a dist-phase mesh."""
-    small = [("eigen_s f32", "s", N_DIST, "float32", "A"),
-             ("eigen_s f64", "s", N_DIST, "float64", "A"),
-             ("eigen_h c64", "h", N_DIST_SMALL, "complex64", "A"),
-             ("eigen_gev A", "gev", N_DIST_SMALL, "float64", "A"),
-             ("eigen_gev N", "gev", N_DIST_SMALL, "float64", "N"),
-             ("independent", "ind", N_DIST_SMALL, "float32", "A")]
+    half = N_DIST // 2
+    small = [("eigen_s f32", "s", N_DIST, "float32", "A", 2),
+             ("eigen_s f64", "s", N_DIST, "float64", "A", 2),
+             ("eigen_sx f32", "sx", N_DIST, "float32", "A", 2),
+             ("eigen_sx f64", "sx", half, "float64", "A", 2),
+             ("eigen_sx N", "sx", half, "float64", "N", 1),
+             ("eigen_h c64", "h", N_DIST, "complex64", "A", 2),
+             ("eigen_gev A", "gev", half, "float64", "A", 2),
+             ("eigen_gev N", "gev", half, "float64", "N", 2),
+             ("independent", "ind", N_DIST, "float32", "A", 2)]
     if shape == (1, 1):
         return ([("eigen_s f32 n8192", "s", N_SLICE, "float32", "A", 2),
+                 ("eigen_sx f32 n8192", "sx", N_SLICE, "float32", "A", 2),
                  ("eigen_h c128", "h", N_DIST_H, "complex128", "A", 1),
                  ("eigen_gev f64", "gev", N_DIST_H, "float64", "A", 1)]
-                + [case + (1,) for case in small])
-    return [case + (2,) for case in small]
+                + [case[:5] + (1,) for case in small])
+    return small
 
 
 def _dist_inputs(driver: str, n: int, dtype: str, device):
@@ -1705,15 +1732,21 @@ def _dist_check(label, driver, a, b, w, z, w_true, mode, others) -> None:
     """The checks of one dist case on the gathered Z (rank 0)."""
     import torch
     from eigenexa_tpu_torch.testing import (b_orthogonality_check,
+                                            eigenvalue_check,
                                             gev_residual_check,
                                             orthogonality_check,
                                             residual_check)
 
-    if driver == "s" and a.dtype == torch.float32:
+    if driver in ("s", "sx") and mode == "N":
+        wt = eigenvalue_check(w, w_true)
+        print(f"{label} checks: w {tuple(w.shape)}, {wt}", flush=True)
+        if z is not None or not (wt.passed or wt.caution):
+            raise AssertionError(f"{label} failed")
+    elif driver in ("s", "sx") and a.dtype == torch.float32:
         same = _check_solution(label, a, w, z, w_true, others)
         if not all(same.values()):
             raise AssertionError(f"{label}: reruns differ {same}")
-    elif driver == "s":
+    elif driver in ("s", "sx"):
         _check_f64(label, a, w, z, w_true)
     elif driver == "h":
         _check_hermitian(label, a, w, z, w_true,
@@ -1772,11 +1805,14 @@ def _collective_ms(mesh, on=None) -> dict:
     return out
 
 
-def dist_rank(mesh, cases):
+def dist_rank(mesh, cases, dryrun_n: int = 0):
     """One rank of a dist-phase mesh: the calibration, each collective's
     time, then every case `runs` times, with this rank's launches and
-    seconds a run; rank 0 checks the gathered Z.  Returns {label: …}."""
+    seconds a run; rank 0 checks the gathered Z.  Then, where `dryrun_n`,
+    ``entry.dryrun_rank`` at that n (it raises on a failed check).
+    Returns {label: …}."""
     import torch
+    from eigenexa_tpu_torch.entry import dryrun_rank
     from eigenexa_tpu_torch.ops import kernels
     from eigenexa_tpu_torch.parallel import distributed as D
     from eigenexa_tpu_torch.parallel.collectives import calibrate_overheads
@@ -1788,7 +1824,8 @@ def dist_rank(mesh, cases):
         # the same calls on CPU tensors: what gloo's staging of CUDA
         # tensors costs beside its own messages
         out["collective_ms_cpu"] = _collective_ms(mesh, torch.device("cpu"))
-    drivers = {"s": D.distributed_eigen_s, "h": D.distributed_eigen_h}
+    drivers = {"s": D.distributed_eigen_s, "sx": D.distributed_eigen_sx,
+               "h": D.distributed_eigen_h}
     for label, driver, n, dtype, mode, runs in cases:
         a, b, w_true = _dist_inputs(driver, n, dtype, dev)
         runs_out = []
@@ -1803,7 +1840,8 @@ def dist_rank(mesh, cases):
                                                      with_info=True)
                 stats = info.comm_stats.report()
             else:
-                w, z, info = drivers[driver](a, mesh, with_info=True)
+                w, z, info = drivers[driver](a, mesh, mode=mode,
+                                             with_info=True)
                 stats = info.comm_stats.report()
             _sync(dev)
             runs_out.append((w, z, time.perf_counter() - t0,
@@ -1812,11 +1850,11 @@ def dist_rank(mesh, cases):
                                                                      r[1]))
                    for r in runs_out)
         # gathers are collectives: every rank makes them, rank 0 checks
-        if driver not in ("ind", "gev") or (driver == "gev" and mode == "A"):
+        if z is not None and driver != "ind":
             z = D.gather_matrix(z, mesh, (n, n))
         others = ({"rerun": (runs_out[0][0], D.gather_matrix(
-            runs_out[0][1], mesh, (n, n)))} if driver == "s" and runs > 1
-            and dtype == "float32" else {})
+            runs_out[0][1], mesh, (n, n)))} if driver in ("s", "sx")
+            and runs > 1 and dtype == "float32" else {})
         if mesh.index == 0:
             _dist_check(f"dist {mesh.px}x{mesh.py} {label}", driver, a, b,
                         w, z, w_true, mode, others)
@@ -1825,6 +1863,10 @@ def dist_rank(mesh, cases):
                       "comm_stats": runs_out[0][4], "bitwise": same}
         del a, b, runs_out, w, z, others
         _empty_cache(dev)
+    if dryrun_n:
+        t0 = time.perf_counter()
+        out["dryrun"] = {"checks": dryrun_rank(mesh, dryrun_n),
+                         "seconds": time.perf_counter() - t0}
     return out
 
 
@@ -1836,9 +1878,10 @@ def dist_phase(device):
     four ranks share the card (NCCL refuses two ranks on one card): each
     mesh's calibration and collective times, every case's checks, seconds,
     each rank's launches and COMM_STAT, reruns bitwise equal, the 2×2 w
-    within the CPU tests' bounds of the 1×1 w at the same n and dtype.
-    Returns the launches {mesh: [rank 0's launches of the first run of
-    the first case, …]}."""
+    within the CPU tests' bounds of the 1×1 w at the same n and dtype, and
+    the 2×2 mesh's dryrun of the four drivers at N_DRYRUN.  Returns rank
+    0's launches in the first run of the Frank eigen_s and eigen_sx cases
+    and of eigen_sx's mode N case, by path."""
     import numpy as np
     from eigenexa_tpu_torch.parallel import launch
 
@@ -1848,6 +1891,7 @@ def dist_phase(device):
         t0 = time.perf_counter()
         worlds[shape] = launch.spawn(dist_rank, shape, backend, device.type,
                                      dist_cases(shape),
+                                     N_DRYRUN if shape == (2, 2) else 0,
                                      timeout=DIST_TIMEOUT)
         name = f"{shape[0]}x{shape[1]} {backend}"
         first = worlds[shape][0]
@@ -1861,12 +1905,12 @@ def dist_phase(device):
             ranks = [world[label] for world in worlds[shape]]
             want = [dist_launches(driver, n, mode, shape, r)
                     for r in range(len(ranks))]
-            got = [[run["sub_matmul"] for run in rank["launches"]]
-                   for rank in ranks]
+            got = [rank["launches"] for rank in ranks]
             print(f"dist {name} {label}: n={n} {dtype} mode {mode}, seconds "
                   f"{[round(t, 4) for t in ranks[0]['seconds']]}, "
-                  f"sub_matmul launches per rank and run {got} (expected "
-                  f"{want}), reruns bitwise equal "
+                  f"launches per rank and run "
+                  f"{[[_nonzero(run) for run in g] for g in got]} (expected "
+                  f"{[_nonzero(w) for w in want]}), reruns bitwise equal "
                   f"{[rank['bitwise'] for rank in ranks]}, COMM_STAT "
                   f"{json.dumps(ranks[0]['comm_stats'])}", flush=True)
             if any(g != [w] * runs for g, w in zip(got, want)):
@@ -1877,10 +1921,17 @@ def dist_phase(device):
                    for rank in ranks):
                 raise AssertionError(f"dist {name} {label}: w differs "
                                      "between ranks")
-    warm = worlds[(1, 1)][0]["eigen_s f32 n8192"]["seconds"][-1]
-    print(f"dist: Frank n={N_SLICE} f32 distributed_eigen_s on the 1x1 "
-          f"NCCL mesh warm {warm:.4f} s; eigen_s warm (slice phase) "
-          f"{TIMES.get('slice_warm')}", flush=True)
+    if (2, 2) in worlds:
+        dry = worlds[(2, 2)][0]["dryrun"]
+        print(f"dist 2x2 dryrun of the four drivers at n={N_DRYRUN}: "
+              f"{dry['seconds']:.1f} s, rank 0's checks "
+              f"{json.dumps(dry['checks'])}", flush=True)
+    for driver, single in (("s", "slice_warm"),
+                           ("sx", f"sx n={N_SLICE} f32 rolled rerun")):
+        warm = worlds[(1, 1)][0][f"eigen_{driver} f32 n8192"]["seconds"][-1]
+        print(f"dist: Frank n={N_SLICE} f32 distributed_eigen_{driver} on "
+              f"the 1x1 NCCL mesh warm {warm:.4f} s; eigen_{driver} warm "
+              f"({single}) {TIMES.get(single)}", flush=True)
     for label, driver, n, dtype, mode, runs in dist_cases((2, 2)):
         w1, w4 = (worlds[shape][0][label]["w"] for shape in ((1, 1),
                                                              (2, 2)))
@@ -1890,8 +1941,39 @@ def dist_phase(device):
               f"(bound {tol:.3e})", flush=True)
         if not err <= tol:
             raise AssertionError(f"dist {label}: w off the 1x1 mesh's")
-    return {"nccl_1x1": worlds[(1, 1)][0]["eigen_s f32 n8192"]["launches"][0],
-            "gloo_2x2": worlds[(2, 2)][0]["eigen_s f32"]["launches"][0]}
+    return {path: worlds[shape][0][label]["launches"][0]
+            for path, shape, label in (
+                ("nccl_1x1", (1, 1), "eigen_s f32 n8192"),
+                ("gloo_2x2", (2, 2), "eigen_s f32"),
+                ("sx nccl_1x1", (1, 1), "eigen_sx f32 n8192"),
+                ("sx gloo_2x2", (2, 2), "eigen_sx f32"),
+                ("sx N gloo_2x2", (2, 2), "eigen_sx N"))}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def entry_phase(device) -> dict:
+    """``entry.entry()``'s fn once: eigen_s on Frank n = 256 f32 with its
+    checks; returns its launches."""
+    import torch
+    from eigenexa_tpu_torch.entry import N_ENTRY, entry
+    from eigenexa_tpu_torch.ops import kernels
+    from eigenexa_tpu_torch.testing import frank_spectrum
+
+    fn, args = entry(device)
+    _reset_launches(kernels)
+    w, z = fn(*args)
+    counts = _take_launches(kernels)
+    want = _want(sub_matmul=expected_launches(N_ENTRY))
+    print(f"entry: launches {_nonzero(counts)} (expected {_nonzero(want)})",
+          flush=True)
+    _check_solution("entry", args[0], w, z,
+                    frank_spectrum(N_ENTRY, torch.float64), {})
+    if counts != want:
+        raise AssertionError(f"entry: launches {counts} != {want}")
+    return counts
 
 
 BENCH_CHECKS = ("residual", "orthogonality", "gev_residual",
@@ -2256,11 +2338,11 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
     (`large_launches`); ``sturm_bisect`` (f64 only) at its band-1
     bisection of n = 8192, its plain time at n = 1024, with a ``band2``
     object of the band-2 bisection.  Each entry's ``bench_launches`` are
-    its launches in the bench phase's input files; ``sub_matmul``'s
-    ``dist_launches`` its launches on rank 0 of the dist phase's Frank
-    eigen_s (n = 8192 on the 1×1 NCCL mesh, n = 2048 on the 2×2 gloo
-    mesh), and ``dist_block`` its f32 and f64 rows at a rank's block on
-    that 2×2 mesh."""
+    its launches in the bench phase's input files, its ``dist_launches``
+    those on rank 0 of the dist phase's Frank eigen_s and eigen_sx (n =
+    8192 on the 1×1 NCCL mesh, n = 1024 on the 2×2 gloo mesh) and
+    eigen_sx mode N (n = 512, 2×2); ``sub_matmul``'s ``dist_block`` its
+    rows at a rank's block on that 2×2 mesh (f32, f64, c64, c128)."""
     main_case = {"sub_matmul": ("wy_windowed_path", "wy"),
                  "symv_lower": ("fused_first_column",
                                 "fused_f64_path_first_column"),
@@ -2272,9 +2354,11 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
                 "library_device_ms", "max_abs_err")
     out = []
     for name, meta in KERNELS.items():
+        dist = {path: counts[name] for path, counts in dist_launches.items()}
         if name == "sturm_bisect":
             out.append({**_sturm_entry(rows, meta, launches[name]),
-                        "bench_launches": bench_launches[name]})
+                        "bench_launches": bench_launches[name],
+                        "dist_launches": dist})
             continue
         row, row64 = (next(r for r in rows if r["name"] == name
                            and r["case"] == case and r["dtype"] == dtype)
@@ -2283,10 +2367,9 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
         entry = {"name": name, "route": "cuda", **meta,
                  "launches": launches[name], **{k: row[k] for k in keys},
                  "f64": {k: row64[k] for k in f64_keys},
-                 "bench_launches": bench_launches[name]}
+                 "bench_launches": bench_launches[name],
+                 "dist_launches": dist}
         if name == "sub_matmul":
-            entry["dist_launches"] = {
-                mesh: counts[name] for mesh, counts in dist_launches.items()}
             entry["dist_block"] = {
                 r["dtype"]: {**{k: r[k] for k in keys},
                              **{k: r[k] for k in ("m", "n", "k")}}
@@ -2351,6 +2434,7 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--dist"]:
         _timed_phase("dist", dist_phase, device)
+        _timed_phase("entry", entry_phase, device)
         print(gpu)
         return 0
     if sys.argv[1:2] == ["--findings"]:
@@ -2408,6 +2492,7 @@ def _drive(device, gpu: str, host) -> int:
     herm64, herm128 = _timed_phase("hermitian", hermitian_phase, device)
     gev, gev_n = _timed_phase("gev", gev_phase, device)
     dist = _timed_phase("dist", dist_phase, device)
+    entry_counts = _timed_phase("entry", entry_phase, device)
     bench = _timed_phase("bench", bench_phase, device)
     large_s, large_sx, chosen = _timed_phase("large", large_phase, device)
     rows += _timed_phase("kernels at the large windowed path",
@@ -2418,10 +2503,9 @@ def _drive(device, gpu: str, host) -> int:
              ("sx rolled", sx_rolled), ("sx windowed", sx_windowed),
              ("modes N and X", modes), ("hermitian c64", herm64),
              ("hermitian c128", herm128), ("gev", gev), ("gev N", gev_n),
-             ("dist 1x1 nccl", dist["nccl_1x1"]),
-             ("dist 2x2 gloo", dist["gloo_2x2"]),
-             ("bench", bench), ("large eigen_s", large_s),
-             ("large eigen_sx", large_sx))
+             *((f"dist {path}", counts) for path, counts in dist.items()),
+             ("entry", entry_counts), ("bench", bench),
+             ("large eigen_s", large_s), ("large eigen_sx", large_sx))
     for path, counts in paths:
         print(f"launches on the {path} path: {json.dumps(counts)}",
               flush=True)
@@ -2430,7 +2514,8 @@ def _drive(device, gpu: str, host) -> int:
             and all(path[name] > 0 for name in matmul
                     for path in (windowed, windowed64, sx_windowed))
             and modes["sturm_bisect"] > 0 and gev_n["sturm_bisect"] > 0
-            and bench["sturm_bisect"] > 0):
+            and bench["sturm_bisect"] > 0
+            and dist["sx N gloo_2x2"]["sturm_bisect"] > 0):
         raise AssertionError("a kernel of a main path was never launched")
 
     print(json.dumps(_kernels_line(rows, {**windowed, "sturm_bisect":

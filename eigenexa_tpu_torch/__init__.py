@@ -19,12 +19,14 @@ Modes N and X of ``eigen_s`` and ``eigen_sx`` bisect with Sturm counts
 (``utils/stageio.py``).
 
 Distributed drivers (``parallel/``): ``distributed_eigen_s``,
-``distributed_eigen_h`` and ``distributed_eigen_gev`` over a px × py mesh
-of processes joined by ``torch.distributed`` (NCCL, a card a rank; or gloo,
-on the CPU or with the ranks sharing one card), and ``independent_solves``;
-``parallel.launch.spawn`` starts the ranks.  The JAX package ``eigenexa_tpu`` stays beside it as
-the reference the port is held to; this package imports torch and never
-jax.
+``distributed_eigen_sx``, ``distributed_eigen_h`` and
+``distributed_eigen_gev`` over a px × py mesh of processes joined by
+``torch.distributed`` (NCCL, a card a rank; or gloo, on the CPU or with the
+ranks sharing one card), ``independent_solves`` and ``training_step``;
+``parallel.launch.spawn`` starts the ranks, and ``entry.dryrun_multichip``
+runs the four drivers on them.  The JAX package ``eigenexa_tpu`` stays
+beside it as the reference the port is held to; this package imports torch
+and never jax.
 
 Each real reduction comes rolled (the default) or windowed (one n×n
 buffer); the Hermitian one is rolled.
@@ -47,8 +49,10 @@ from eigenexa_tpu_torch.parallel.distributed import (
     distributed_eigen_gev,
     distributed_eigen_h,
     distributed_eigen_s,
+    distributed_eigen_sx,
     gather_matrix,
     independent_solves,
+    training_step,
 )
 from eigenexa_tpu_torch.runtime import (
     EigenContext,
@@ -76,6 +80,7 @@ __all__ = [
     "distributed_eigen_gev",
     "distributed_eigen_h",
     "distributed_eigen_s",
+    "distributed_eigen_sx",
     "eigen_free",
     "eigen_get_id",
     "eigen_get_matdims",
@@ -90,4 +95,5 @@ __all__ = [
     "eigh",
     "gather_matrix",
     "independent_solves",
+    "training_step",
 ]

@@ -19,8 +19,8 @@ runs on ``--device`` (the card unless ``--device cpu``), in float32 unless
 after its checks, the incumbent beside the line.
 
 ``-x PX PY`` starts PX·PY ranks (``parallel.launch.spawn``) and runs every
-line through the distributed drivers on that mesh: eigen_s, eigen_h and
-GEV lines (an eigen_sx line raises: ROADMAP A17b); rank 0 prints the
+line through the distributed drivers on that mesh: eigen_sx, eigen_s,
+eigen_h and GEV lines; rank 0 prints the
 report with the COMM_STAT block (the reference's -x dimX dimY,
 benchmark/main2.f:152-197).  ``-g K`` runs K independent solves of the
 line's problem class over K ranks, or over the -x mesh (main2.f:163-174).
@@ -373,22 +373,14 @@ def _mesh_report(case, solver_name, mode, dtype, mesh, info, a, w, z,
     return report
 
 
-def _check_mesh_case(case: BenchCase) -> None:
-    if case.solver == 0:
-        raise NotImplementedError(
-            "an eigen_sx line under -x needs distributed_eigen_sx, the "
-            "band-2 half of the distributed layer (ROADMAP A17b)")
-
-
 def run_mesh_case(case: BenchCase, mesh, dtype=None, printer=print,
                   w_file=None) -> dict:
     """One benchmark line through the distributed drivers on `mesh`
     (every rank of it calls this; rank 0 passes the printer, the others
-    None).  eigen_s and eigen_h lines take their modes; a GEV line modes A
-    and N (others run as A, as on one device)."""
+    None).  eigen_sx, eigen_s and eigen_h lines take their modes; a GEV
+    line modes A and N (others run as A, as on one device)."""
     from eigenexa_tpu_torch.parallel import distributed as D
 
-    _check_mesh_case(case)
     dtype = dtype or torch.float32
     cfg = SolverConfig(panel_forward=case.bx, panel_backward=case.by)
     mode = MODE_MAP.get(case.mode, "A")
@@ -416,6 +408,8 @@ def run_mesh_case(case: BenchCase, mesh, dtype=None, printer=print,
         a = a.to(torch.complex128 if dtype == torch.float64
                  else torch.complex64)
         drive, name = D.distributed_eigen_h, "eigen_h"
+    elif case.solver == 0:
+        drive, name = D.distributed_eigen_sx, "eigen_sx"
     else:
         drive, name = D.distributed_eigen_s, "eigen_s"
     w, z, info = drive(a, mesh, nvec=case.nvec, mode=mode, config=cfg,
@@ -502,9 +496,6 @@ def run_distributed(cases, shape, backend: str, device: str, dtype,
     failure raises SystemExit after the report, as ``run_input_file``."""
     from eigenexa_tpu_torch.parallel import launch
 
-    if not independent:
-        for case in cases:
-            _check_mesh_case(case)
     out = launch.spawn(_rank_run, tuple(shape), backend, device,
                        list(cases), _dtype_name(dtype), independent,
                        timeout=timeout)[0]

@@ -137,6 +137,26 @@ def datacast_block(v_local, mesh, from_axis: str, to_axis: str,
     return full[start:start + to_size]
 
 
+def datacast_block_and_sum(v_local, partial, mesh, from_axis: str,
+                           to_axis: str, to_size: int):
+    """:func:`datacast_block` of `v_local` and the sum of `partial` along
+    `from_axis`, in one all_gather where they depend on nothing computed
+    between them (the distributed reductions' v and its panel
+    corrections).  Returns (the block, the sum); the sum adds the ranks'
+    pieces in group order, the bits of :func:`psum_x` / :func:`psum_y`."""
+    v_local = v_local.contiguous()
+    nv = v_local.numel()
+    pieces = all_gather(torch.cat([v_local.reshape(-1),
+                                   partial.reshape(-1)]), mesh, from_axis,
+                        tiled=False)
+    full = pieces[:, :nv].reshape((-1,) + tuple(v_local.shape[1:]))
+    start = _group(mesh, to_axis)[2] * to_size
+    total = pieces[0, nv:].clone()
+    for piece in pieces[1:, nv:]:
+        total += piece
+    return full[start:start + to_size], total.reshape(partial.shape)
+
+
 def grouped_allreduce(v, gsz: int, mesh):
     """Allreduce-sum within contiguous groups of `gsz` flat ranks
     (flat = ix·py + iy): the FS merge tree's group-scoped reduce

@@ -1,10 +1,11 @@
 """Distributed drivers (counterpart of
 ``eigenexa_tpu/parallel/distributed.py``; reference: src/eigen_s.F:30,
-src/eigen_h.F:28 and src/KMATH_EIGEN_GEV_1.F:40-115 on the 2D process grid
-of src/eigen_libs0.F:477).
+src/eigen_sx.F:30, src/eigen_h.F:28 and src/KMATH_EIGEN_GEV_1.F:40-115 on
+the 2D process grid of src/eigen_libs0.F:477).
 
-scale → TRD (``trd_dist.trd_panel_shard``) → D&C
-(``dc_dist.solve_tridiag_dist``) or bisection → TRBAK
+scale → TRD (``trd_dist.trd_panel_shard``) or, for ``distributed_eigen_sx``,
+PRD (``prd_dist.prd_panel_shard``) → D&C (``dc_dist.solve_tridiag_dist``,
+``dc_band_dist.solve_band2_dist``) or bisection → TRBAK
 (``trd_dist.trbak_shard``), each stage a function that every rank of the
 mesh runs on its own blocks, with the reference's communication pattern
 written out through ``parallel/collectives.py``.
@@ -13,13 +14,15 @@ The contract.  Every rank of the mesh calls a driver with the same
 arguments, the global matrix among them (a tensor on any device or a numpy
 array), and the driver takes this rank's block of it (``shard_matrix``, the
 counterpart of the JAX package's ``shard_matrix``).  The matrix is
-zero-padded to N = ``padded_size(n, px, py, nb)`` and block-sharded: rank
+zero-padded to N = ``padded_size(n, px, py, nb, band)`` and block-sharded: rank
 (ix, iy) holds rows [ix·N/px, (ix+1)·N/px) and columns [iy·N/py,
 (iy+1)·N/py).  Every rank gets w back, the same everywhere, with its own
 block of Z: rows [ix·N/px, (ix+1)·N/px) and columns [iy·c, (iy+1)·c), c =
 ⌈nvec/py⌉, zero outside the n × nvec matrix.  ``gather_matrix`` assembles
-Z on every rank.  f32, f64, c64 and c128 run on the card; a CUDA block
-launches ``sub_matmul`` (the trailing and WY updates) or raises.
+Z on every rank.  f32, f64, c64 and c128 run on the card (f32 and f64 in
+``distributed_eigen_sx``); a CUDA block launches ``sub_matmul`` (the
+trailing and WY updates) and, in modes N and X, ``sturm_bisect``, or
+raises.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from eigenexa_tpu_torch.parallel.collectives import (GRID, CommStats,
                                                      all_gather,
                                                      calibrate_overheads,
                                                      pmax)
+from eigenexa_tpu_torch.parallel.prd_dist import (comm_model_prd,
+                                                  prd_panel_shard)
 from eigenexa_tpu_torch.parallel.trd_dist import (comm_model_trbak,
                                                   comm_model_trd,
                                                   comm_model_v_bcast,
@@ -42,22 +47,33 @@ from eigenexa_tpu_torch.parallel.trd_dist import (comm_model_trbak,
                                                   trd_panel_shard)
 from eigenexa_tpu_torch.runtime import EigenContext, SolverConfig, \
     apply_precision
+from eigenexa_tpu_torch.solvers.dc_band_dist import (comm_model_dc_band,
+                                                     solve_band2_dist)
 from eigenexa_tpu_torch.solvers.dc_dist import (LEAF, _is_pow2, _tree_sizes,
                                                 comm_model_dc,
                                                 solve_tridiag_dist)
 from eigenexa_tpu_torch.solvers.gev import gev_flop_model
 from eigenexa_tpu_torch.solvers.solver import (SolveInfo, eigen_s,
                                                flop_model, scaling_factor)
+from eigenexa_tpu_torch.testing.matgen import frank
 from eigenexa_tpu_torch.utils.sync import device_sync
 
 MODES = ("A", "N", "X", "S", "T", "C")
 
 
-def padded_size(n: int, px: int, py: int, nb: int) -> int:
+def panel_width(nb: int, band: int = 1) -> int:
+    """The reduction's panel width: nb, rounded up to even for band 2
+    (whole pairs of columns)."""
+    return nb + nb % 2 if band == 2 else nb
+
+
+def padded_size(n: int, px: int, py: int, nb: int, band: int = 1) -> int:
     """Smallest N ≥ n divisible by the panel width and both mesh axes (the
     eigen_get_matdims analogue of the block layout,
-    src/eigen_libs0.F:1254)."""
-    m = math.lcm(px, py, nb)
+    src/eigen_libs0.F:1254).  For band 2 both block sizes N/px and N/py are
+    even as well, so that a pair of columns never straddles a block (JAX
+    distributed.py:349-351)."""
+    m = math.lcm(band * px, band * py, panel_width(nb, band))
     return -(-n // m) * m
 
 
@@ -103,10 +119,10 @@ def _eye_block(mesh, m_x: int, nv_y: int, n: int, nvec: int, dtype):
 
 
 def _dist_solve(a_blk, n: int, nvec: int, mode: str, nb_f: int, nb_b: int,
-                mesh):
+                mesh, band: int = 1):
     """The distributed solve of one rank's padded block `a_blk` (consumed:
-    scaled and reduced in place), modes as at distributed.py:99-153.
-    Returns (w, this rank's Z block or None)."""
+    scaled and reduced in place), modes as at distributed.py:99-153 (band
+    1) and :254-322 (band 2).  Returns (w, this rank's Z block or None)."""
     dtype = a_blk.dtype
     rdtype = a_blk.real.dtype
     px, py = mesh.shape
@@ -118,16 +134,26 @@ def _dist_solve(a_blk, n: int, nvec: int, mode: str, nb_f: int, nb_b: int,
                                                                  math.inf))
     sigma = scaling_factor(pmax(loc, mesh, GRID))
     a_blk.mul_(sigma)
-    d_f, e_f, tau, v_loc = trd_panel_shard(a_blk, nb_f, mesh)
+    if band == 1:
+        d_f, e_f, tau, v_loc = trd_panel_shard(a_blk, nb_f, mesh)
+        offd = (e_f[:n - 1],)
+        bisect, refine = sturm.eigvals_bisect, sturm.refine_eigenvalues
+        solve = solve_tridiag_dist
+    else:
+        d_f, e1_f, e2_f, tau, v_loc = prd_panel_shard(a_blk, nb_f, mesh)
+        offd = (e1_f[:n - 1], e2_f[:max(n - 2, 0)])
+        bisect = sturm.eigvals_bisect_band2
+        refine = sturm.refine_eigenvalues_band2
+        solve = solve_band2_dist
     del a_blk
-    d, e = d_f[:n], e_f[:n - 1]
+    d = d_f[:n]
     if mode == "N":
-        return sturm.eigvals_bisect(d, e) / sigma, None
+        return bisect(d, *offd) / sigma, None
     nv_y = -(-nvec // py)
     if mode in ("A", "X", "T"):
-        w, z = solve_tridiag_dist(d, e, mesh, big_n, nvec, rdtype)
+        w, z = solve(d, *offd, mesh, big_n, nvec, rdtype)
         if mode == "X":
-            w = sturm.refine_eigenvalues(d, e, w)
+            w = refine(d, *offd, w)
         w = w / sigma
         z = z.to(dtype)   # the real eigenvectors of T (convert_DtoZ)
         if mode == "T":
@@ -157,19 +183,30 @@ def _mesh_overheads(mesh):
 
 
 def _dist_comm_stats(n: int, nvec: int, mode: str, cfg: SolverConfig,
-                     mesh, dtype) -> CommStats:
+                     mesh, dtype, band: int = 1) -> CommStats:
     """The COMM_STAT table of one distributed solve, from the stage models
-    (JAX ``_dist_comm_stats``, distributed.py:169), with the port's V
-    broadcasts and its back-transform over ⌈nvec/py⌉ columns a rank."""
+    (JAX ``_dist_comm_stats``, distributed.py:169, and the model of
+    ``distributed_eigen_sx``, :369-374), with the port's V broadcasts and
+    its back-transform over ⌈nvec/py⌉ columns a rank.  Band 1 counts the
+    D&C in the JAX package's modes A, X and S; band 2 where the band tree
+    runs, modes A, X and T (the JAX package's band-2 model leaves it
+    out)."""
     px, py = mesh.shape
-    big_n = padded_size(n, px, py, cfg.panel_forward)
+    p = px * py
+    nb_f = panel_width(cfg.panel_forward, band)
+    big_n = padded_size(n, px, py, nb_f, band)
     item = dtype.itemsize
+    n_pad = _tree_sizes(n, p, LEAF)[0] if _is_pow2(p) else n
     st = CommStats()
-    st.merge(comm_model_trd(big_n, cfg.panel_forward, px, py, item))
+    if band == 1:
+        st.merge(comm_model_trd(big_n, nb_f, px, py, item))
+        if mode in ("A", "X", "S"):
+            st.merge(comm_model_dc(n_pad, p, 8, item))
+    else:
+        st.merge(comm_model_prd(big_n, nb_f, px, py, item))
+        if mode in ("A", "X", "T"):
+            st.merge(comm_model_dc_band(n_pad, p, item))
     if mode in ("A", "X", "S"):
-        p = px * py
-        n_pad = _tree_sizes(n, p, LEAF)[0] if _is_pow2(p) else n
-        st.merge(comm_model_dc(n_pad, p, 8, item))
         st.merge(comm_model_trbak(big_n, -(-nvec // py), cfg.panel_backward,
                                   item))
         st.merge(comm_model_v_bcast(big_n, cfg.panel_backward, px, py,
@@ -178,8 +215,8 @@ def _dist_comm_stats(n: int, nvec: int, mode: str, cfg: SolverConfig,
 
 
 def _drive(a, mesh, nvec, mode: str, config, with_info: bool, flops_of,
-           dtype=None):
-    """What distributed_eigen_s and _h share: the mode, the block, the
+           dtype=None, band: int = 1):
+    """What distributed_eigen_s, _sx and _h share: the mode, the block, the
     clock and the telemetry."""
     cfg = config or SolverConfig()
     mode = mode.upper()
@@ -189,18 +226,19 @@ def _drive(a, mesh, nvec, mode: str, config, with_info: bool, flops_of,
     apply_precision(cfg)
     n = a.shape[0]
     nvec = n if nvec is None else min(nvec, n)
-    big_n = padded_size(n, mesh.px, mesh.py, cfg.panel_forward)
+    nb_f = panel_width(cfg.panel_forward, band)
+    big_n = padded_size(n, mesh.px, mesh.py, nb_f, band)
     if with_info:
         _mesh_overheads(mesh)   # calibrate outside the timed window
     t0 = time.perf_counter()
     a_blk = shard_matrix(_local(a, dtype), mesh, big_n)
-    w, z = _dist_solve(a_blk, n, nvec, mode, cfg.panel_forward,
-                       cfg.panel_backward, mesh)
+    w, z = _dist_solve(a_blk, n, nvec, mode, nb_f, cfg.panel_backward,
+                       mesh, band)
     if not with_info:
         return w, z
     device_sync(w, z)
     elapsed = time.perf_counter() - t0
-    stats = _dist_comm_stats(n, nvec, mode, cfg, mesh, a_blk.dtype)
+    stats = _dist_comm_stats(n, nvec, mode, cfg, mesh, a_blk.dtype, band)
     info = SolveInfo(flops=flops_of(n, nvec, mode in ("A", "X", "S")),
                      elapsed=elapsed,
                      comm_time=stats.seconds(*_mesh_overheads(mesh)),
@@ -219,6 +257,25 @@ def distributed_eigen_s(a, mesh, nvec: Optional[int] = None,
     Modes A/N/X/S/T/C as ``eigen_s``'s; w is float64 (T's diagonal in
     a's dtype in modes S and C), Z None in mode N."""
     return _drive(a, mesh, nvec, mode, config, with_info, flop_model)
+
+
+def distributed_eigen_sx(a, mesh, nvec: Optional[int] = None,
+                         mode: str = "A",
+                         config: Optional[SolverConfig] = None,
+                         with_info: bool = False):
+    """eigen_sx over the mesh (reference: src/eigen_sx.F:30 on the 2D
+    grid; JAX ``distributed_eigen_sx``, distributed.py:325): the band-2
+    reduction by reflector pairs (``prd_dist``), the distributed band-2
+    D&C (``dc_band_dist``) or, in modes N and X, band-2 Sturm bisection,
+    and the same back-transform as ``distributed_eigen_s``.  Arguments,
+    modes and returns as ``distributed_eigen_s``'s; `a` real (f32 or f64),
+    padded as ``padded_size(…, band=2)`` says."""
+    t = _local(a)
+    if t.is_complex():
+        raise TypeError("distributed_eigen_sx takes a real symmetric "
+                        "matrix; a Hermitian one takes distributed_eigen_h")
+    return _drive(t, mesh, nvec, mode, config, with_info, flop_model,
+                  band=2)
 
 
 def distributed_eigen_h(a, mesh, nvec: Optional[int] = None,
@@ -347,3 +404,18 @@ def independent_solves(a_batch, mesh, nvec: Optional[int] = None,
         return parts.transpose(0, 1).reshape(per * p, *x.shape[1:])[:k]
 
     return gather(w_loc), None if z_loc is None else gather(z_loc)
+
+
+def training_step(mesh, n: int = 32, dtype=torch.float32):
+    """One whole distributed solve, the framework's analogue of a training
+    step (JAX ``training_step``, distributed.py:617): Frank n in `dtype` on
+    the mesh's device through ``distributed_eigen_s`` with panels of 8 and
+    16.  Every rank of the mesh calls it.  Returns (w, the whole Z on every
+    rank, ‖A·Z − Z·diag(w)‖_F / ‖A‖_F)."""
+    a = frank(n, dtype, mesh.device)
+    cfg = SolverConfig(panel_forward=8, panel_backward=16)
+    w, z = distributed_eigen_s(a, mesh, config=cfg)
+    z = gather_matrix(z, mesh, (n, n))
+    resid = (torch.linalg.norm(a @ z - z * w[None, :].to(z.dtype))
+             / torch.linalg.norm(a))
+    return w, z, resid

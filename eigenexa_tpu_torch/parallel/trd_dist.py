@@ -28,11 +28,17 @@ Two departures from the JAX package (ROADMAP A17):
   package keeps V replicated along 'y' (``P("x", None)``);
 * the back-transform runs over the caller's nvec columns only.
 
-Per column the reduction makes the JAX package's collectives: the column's
-broadcast along 'y', the U/W rows' broadcast along 'x', the Householder
-norm's reduction along 'x' (one all_gather where the JAX package makes
-three reductions, ``_dist_householder``), one datacast, a 'y' sum of the
-local matvec and two 'x' sums: seven, and none over a group of one rank.
+Per column the reduction makes five collectives, none over a group of one
+rank, where the JAX package makes nine (trd_dist.py:97-150): the column's
+broadcast along 'y'; the Householder norm's reduction along 'x' (one
+all_gather where the JAX package makes three reductions,
+``_dist_householder``); the datacast of v with the panel's couplings Uᴴv
+and Wᴴv summed along 'x' in the same all_gather
+(``collectives.datacast_block_and_sum``); a 'y' sum of the local matvec;
+and the 'x' sum of vᴴq, which also carries the next column's row of U and
+W from its owner (the JAX package broadcasts that row along 'x' at the
+start of each column; every rank completes its last entry, which needs
+vᴴq, itself, and the owner keeps the same value).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from eigenexa_tpu_torch.ops.kernels import sub_matmul
 from eigenexa_tpu_torch.parallel.collectives import (CommStats, all_gather,
                                                      bcast_from_owner,
                                                      datacast_block,
+                                                     datacast_block_and_sum,
                                                      psum_grid, psum_x,
                                                      psum_y)
 
@@ -124,39 +131,50 @@ def trd_panel_shard(a_loc, nb: int, mesh):
     tau_all = torch.zeros(n_tot, dtype=dtype, device=dev)
     e_all = torch.zeros(n_tot, dtype=rdtype, device=dev)
     zero_col = torch.zeros(m_x, dtype=dtype, device=dev)
-    zero_row = torch.zeros(2 * nb, dtype=dtype, device=dev)
+    zero_row = torch.zeros(2 * nb + 2, dtype=dtype, device=dev)
     u_p = torch.zeros((m_x, nb), dtype=dtype, device=dev)
     w_p = torch.zeros_like(u_p)
     for ps in range(0, n_tot, nb):
         u_p.zero_()
         w_p.zero_()
+        uw_row = zero_row[:2 * nb]   # rows k of U and W: zero at ps
         for j in range(nb):
             k = ps + j
             # column k of the panel-start matrix, from its 'y' owner
             own_y = col0 <= k < col0 + m_y
             col = bcast_from_owner(a_loc[:, k - col0] if own_y else zero_col,
                                    own_y, mesh, "y")
-            # rows k of U and W, from their 'x' owner
-            own_x = row0 <= k < row0 + m_x
-            uw_row = bcast_from_owner(
-                torch.cat([u_p[k - row0], w_p[k - row0]]) if own_x
-                else zero_row, own_x, mesh, "x")
             # the in-panel rank-2 corrections (src/eigen_trd_t5.F:71)
             col = (col - u_p @ uw_row[nb:].conj()
                    - w_p @ uw_row[:nb].conj())
             v, tau, beta = _dist_householder(col, mesh, k + 1, row0)
+            # v's column copy, and Uᴴv, Wᴴv summed along 'x'
+            v_y, cuv = datacast_block_and_sum(
+                v, torch.cat([u_p.conj().T @ v, w_p.conj().T @ v]), mesh,
+                "x", "y", m_y)
             # q = A·v: local product, summed along 'y'
-            v_y = datacast_block(v, mesh, "x", "y", m_y)
             q = psum_y(a_loc @ v_y, mesh)
             if ps > row0:
                 q[:min(ps - row0, m_x)] = 0
             # q −= U·(Wᴴv) + W·(Uᴴv) (src/eigen_trd_t6_3.F:85)
-            cuv = psum_x(torch.cat([u_p.conj().T @ v, w_p.conj().T @ v]),
-                         mesh)
             q = q - u_p @ cuv[nb:] - w_p @ cuv[:nb]
-            vq = psum_x((v.conj() * q).sum(), mesh)
             u_p[:, j] = v
-            w_p[:, j] = tau * q - (tau * tau.conj() * 0.5) * vq * v
+            # vᴴq summed along 'x', with the next column's rows of U and W
+            # and its entries of v and q from their owner
+            r = k + 1 - row0
+            nxt = j + 1 < nb
+            own_x = nxt and 0 <= r < m_x
+            sums = psum_x(torch.cat(
+                [(v.conj() * q).sum()[None]]
+                + ([torch.cat([u_p[r], w_p[r], v[r:r + 1], q[r:r + 1]])
+                    if own_x else zero_row] if nxt else [])), mesh)
+            vq, c = sums[0], tau * tau.conj() * 0.5
+            w_p[:, j] = tau * q - c * vq * v
+            if nxt:
+                uw_row = sums[1:2 * nb + 1].clone()
+                uw_row[nb + j] = tau * sums[-1] - c * vq * sums[-2]
+                if own_x:
+                    w_p[r, j] = uw_row[nb + j]
             tau_all[k] = tau
             e_all[k] = beta
         # A −= U·W_yᴴ + W·U_yᴴ, the column copies one datacast each
@@ -181,16 +199,20 @@ def comm_model_trd(n_pad: int, nb: int, px: int, py: int,
                    itemsize: int) -> CommStats:
     """CommStats of one ``trd_panel_shard`` run: every collective of the
     panel recurrence times its trip count (the JAX package's model,
-    trd_dist.py:191)."""
+    trd_dist.py:191, with the couplings Uᴴv and Wᴴv in v's datacast)."""
     st = CommStats()
     m_x = n_pad // px
     cols = n_pad
     panels = n_pad // nb
-    # per column: col bcast (y), uw-row bcast (x), the norm's scalar
-    # reduces, v datacast, q reduce (y), cuv reduce (x), vq reduce (x)
-    st.record("bcast", cols * (m_x + 2 * nb) * itemsize, 2 * cols)
-    st.record("reduce", cols * (3 + m_x + 2 * nb + 1) * itemsize, 4 * cols)
-    st.record("redist", cols * n_pad * itemsize, cols)
+    # per column: col bcast (y), the norm's scalar reduces, v datacast with
+    # the couplings (x), q reduce (y), vq reduce (x), which carries the
+    # next row of U and W with its v and q entries in all but a panel's
+    # last column
+    st.record("bcast", cols * m_x * itemsize, cols)
+    st.record("reduce", (cols * (3 + m_x + 1)
+                         + panels * (nb - 1) * (2 * nb + 2)) * itemsize,
+              3 * cols)
+    st.record("redist", cols * (n_pad + 2 * nb) * itemsize, cols)
     # per panel: U/W panel datacasts
     st.record("redist", panels * 2 * n_pad * nb * itemsize, 2 * panels)
     # final diagonal assembly

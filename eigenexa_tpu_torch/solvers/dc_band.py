@@ -161,10 +161,26 @@ def solve_band2_dc(d: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
                 torch.full((n, n), float("nan"), dtype=vec_dtype,
                            device=dev))
     leaf = max(4, min(leaf, n))
-    m, levels = _pad_sizes(n, leaf)
+    m, _ = _pad_sizes(n, leaf)
+    d_mod, e1_mod, e2_pad, coefs = _prepare(d, e1, e2, m, leaf)
+    w, q, _, _ = _solve_blocks(d_mod, e1_mod, e2_pad, coefs, 0, m, leaf,
+                               vec_dtype, _LEVEL_CHUNK_MIN,
+                               _LEVEL_CHUNK_PANEL)
+    return w[:n], q[:n, :n]
 
-    # pad with a decoupled, scale-relative ascending diagonal (see dc_tree)
-    span = d.abs().amax() + e1.abs().amax()
+
+def _prepare(d, e1, e2, m: int, leaf: int):
+    """The tree's input of size m (f64): (d, e1, e2) padded with a
+    decoupled, scale-relative ascending diagonal (see dc_tree), and every
+    cut at leaf, 2·leaf, … < m made up front, each boundary cut exactly
+    once across the levels.  Returns (d_mod, e1_mod, e2_pad, (a, b, c, f,
+    h) at each cut)."""
+    n = d.shape[0]
+    dev = d.device
+    d, e1, e2 = d.to(F64), e1.to(F64), e2.to(F64)
+    span = d.abs().amax()
+    if n > 1:
+        span = span + e1.abs().amax()
     if n > 2:
         span = span + e2.abs().amax()
     base = torch.clamp_min(span, torch.finfo(F64).tiny)
@@ -173,9 +189,6 @@ def solve_band2_dc(d: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
                                                    device=dev)])
     e1_pad = torch.cat([e1, d.new_zeros(m - n + 1)])
     e2_pad = torch.cat([e2, d.new_zeros(m - n + 2)])
-
-    # every leaf boundary is cut exactly once across the levels; the
-    # compensating in-block changes go in up front
     cuts = torch.arange(leaf, m, leaf, device=dev)
     a_all, b_all, c_all, f_all, h_all = _cut_vectors(e1_pad, e2_pad, cuts)
     d_mod = d_pad.clone()
@@ -185,27 +198,38 @@ def solve_band2_dc(d: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
     d_mod[cuts + 1] -= h_all * h_all
     e1_mod = e1_pad.clone()
     e1_mod[cuts - 2] -= a_all * b_all
+    return d_mod, e1_mod, e2_pad, (a_all, b_all, c_all, f_all, h_all)
 
-    nblk = m // leaf
-    first = torch.arange(nblk, device=dev)[:, None] * leaf
+
+def _solve_blocks(d_mod, e1_mod, e2_pad, coefs, g0: int, size: int,
+                  leaf: int, vec_dtype, chunk_min: int, chunk_panel: int):
+    """The leaves and every merge level of the rows [g0, g0 + size) of the
+    prepared tree (``_prepare``), size = leaf·2^k.  Returns (w (size,)
+    ascending, f64; its eigenvectors (size, size) in vec_dtype; their first
+    two and last two rows (2, size) each, f64).  A join at least
+    `chunk_min` wide takes the panel-chunked merges."""
+    dev = d_mod.device
+    nblk = size // leaf
+    first = g0 + torch.arange(nblk, device=dev)[:, None] * leaf
     w, q = _leaf_eigh_band2(
-        d_mod.reshape(nblk, leaf),
+        d_mod[g0:g0 + size].reshape(nblk, leaf),
         e1_mod[first + torch.arange(leaf - 1, device=dev)],
         e2_pad[first + torch.arange(leaf - 2, device=dev)])
     rows_lo = q[:, :2, :]          # f64 boundary rows before the cast
     rows_hi = q[:, -2:, :]
     q = q.to(vec_dtype)
 
-    # level ℓ joins blocks of leaf·2^ℓ at the cuts leaf·2^ℓ·(2i+1)
-    for lvl in range(levels):
-        s = leaf * 2 ** lvl
-        ci = torch.arange(s, m, 2 * s, device=dev) // leaf - 1
-        coefs = (a_all[ci], b_all[ci], c_all[ci], f_all[ci], h_all[ci])
-        if 2 * s >= _LEVEL_CHUNK_MIN:
+    # level ℓ joins blocks of leaf·2^ℓ at the cuts g0 + leaf·2^ℓ·(2i+1)
+    s = leaf
+    while s < size:
+        ci = torch.arange(g0 + s, g0 + size, 2 * s, device=dev) // leaf - 1
+        level = tuple(x[ci] for x in coefs)
+        if 2 * s >= chunk_min:
             w, q, rows_lo, rows_hi = _merge_level_band2_chunked(
-                w, q, rows_lo, rows_hi, *coefs, vec_dtype,
-                _LEVEL_CHUNK_PANEL)
+                w, q, rows_lo, rows_hi, *level, vec_dtype, chunk_panel)
         else:
             w, q, rows_lo, rows_hi = _merge_level_band2(
-                w, q, rows_lo, rows_hi, *coefs, vec_dtype)
-    return w.reshape(m)[:n], q.reshape(m, m)[:n, :n]
+                w, q, rows_lo, rows_hi, *level, vec_dtype)
+        s *= 2
+    return (w.reshape(size), q.reshape(size, size),
+            rows_lo.reshape(2, size), rows_hi.reshape(2, size))

@@ -224,15 +224,24 @@ def solve_tridiag_dist(d, e, mesh, big_n: int, nvec: int, vec_dtype,
     n_pad, _, rloc = _tree_sizes(n, p, leaf)
     d_mod, e_pad = _prepare_tree(d, e, n_pad, leaf)
     w, q_loc = _dc_tree_shard(d_mod, e_pad, mesh, leaf, rloc, vec_dtype)
+    return w[:n], _tree_blocks(q_loc, mesh, n, nvec, big_n)
+
+
+def _tree_blocks(q_loc, mesh, n: int, nvec: int, big_n: int):
+    """This rank's (big_n/px, ⌈nvec/py⌉) block of the Z layout from the
+    tree's rows: flat rank r holds rows [r·rloc, (r+1)·rloc) of the
+    (n_pad, n_pad) eigenvectors, n_pad = P·rloc."""
+    px, py = mesh.shape
+    m_x, nv_y = big_n // px, -(-nvec // py)
+    rloc = q_loc.shape[0]
     # grid row ix holds tree rows [ix·py·rloc, (ix+1)·py·rloc)
     rows = all_gather(q_loc, mesh, "y")
-    if n_pad == big_n:
-        return w[:n], _block(rows, mesh, n, nvec, m_x, nv_y,
-                             row_start=mesh.ix * m_x)
+    if px * py * rloc == big_n:
+        return _block(rows, mesh, n, nvec, m_x, nv_y,
+                      row_start=mesh.ix * m_x)
     # the rows this rank needs lie in other grid rows' blocks: take this
     # rank's columns of its grid row's rows, and gather them along 'x'
     mine = _block(rows, mesh, n, nvec, py * rloc, nv_y,
                   row_start=mesh.ix * py * rloc)
     cols = all_gather(mine, mesh, "x")
-    return w[:n], _block(cols, mesh, n, nvec, m_x, nv_y,
-                         col_start=mesh.iy * nv_y)
+    return _block(cols, mesh, n, nvec, m_x, nv_y, col_start=mesh.iy * nv_y)

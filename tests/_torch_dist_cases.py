@@ -18,6 +18,10 @@ import torch
 N = 64         # the cases held against the JAX package
 N_PAD = 48     # the padded cases (N = 48 is no multiple of 4·16 … on some
 #                meshes) held against the single-device port
+N_PAD_SX = 40  # eigen_sx's padded cases: every mesh pads 40 to 48
+N_BAND = 128   # the band-2 tree alone, with leaves of LEAF_BAND
+LEAF_BAND = 16
+N_DRYRUN = 64
 NB_F, NB_B = 16, 32
 K_INDEPENDENT = 5
 
@@ -65,6 +69,15 @@ def tridiag(n: int, seed: int):
     return rng.standard_normal(n), rng.standard_normal(n - 1)
 
 
+def pentadiag(n: int, seed: int):
+    """(d, e1, e2) with two clusters of eigenvalues: d near 0 in the upper
+    half of the rows and near 10 in the lower, off-diagonals of 0.3."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal(n) + 10.0 * (np.arange(n) >= n // 2)
+    return d, 0.3 * rng.standard_normal(n - 1), 0.3 * rng.standard_normal(
+        n - 2)
+
+
 def batch(k: int, n: int, seed: int) -> np.ndarray:
     return np.stack([designed(n, seed + i) for i in range(k)])
 
@@ -93,6 +106,8 @@ def _collectives(mesh):
         "gather_y": c.all_gather(v, mesh, "y", tiled=False),
         "gather_grid": c.all_gather(v, mesh, c.GRID),
         "datacast": c.datacast_block(v, mesh, "x", "y", 3),
+        "datacast_and_sum": torch.cat(c.datacast_block_and_sum(
+            v, 2 * v, mesh, "x", "y", 3)),
         "group2": c.grouped_allreduce(v, 2, mesh),
         "group4": c.grouped_allreduce(v, 4, mesh),
         "input": v,
@@ -120,9 +135,11 @@ def _solve(drive, a, mesh, n, nvec=None, mode="A", dtype=None):
 def world(mesh):
     """Every case of the module on the 4-rank world `mesh` (2×2)."""
     from eigenexa_tpu_torch import eigen_get_id, eigen_get_procs, eigen_init
+    from eigenexa_tpu_torch.entry import dryrun_rank
     from eigenexa_tpu_torch.parallel import distributed as D
     from eigenexa_tpu_torch.parallel.mesh import build_mesh
     from eigenexa_tpu_torch.solvers import dc_tree
+    from eigenexa_tpu_torch.solvers.dc_band_dist import solve_band2_dist
     from eigenexa_tpu_torch.solvers.dc_dist import solve_tridiag_dist
 
     meshes = {name: build_mesh(shape, order="R" if name == "22R" else "C",
@@ -159,6 +176,19 @@ def world(mesh):
         out["tree_chunked"] = tree(meshes["22"])
     finally:
         dc_tree._LEVEL_CHUNK_MIN, dc_tree._LEVEL_CHUNK_PANEL = chunk
+
+    # the band-2 tree alone (JAX parity; with leaves of 16, phase 1 joins
+    # inside each rank's rows), then with every join panel-chunked
+    bands = [torch.tensor(x) for x in pentadiag(N_BAND, 8)]
+
+    def band_tree(m, **chunk):
+        w, s = solve_band2_dist(*bands, m, N_BAND, N_BAND, torch.float64,
+                                leaf=LEAF_BAND, **chunk)
+        return {"w": w, "z": D.gather_matrix(s, m, (N_BAND, N_BAND))}
+
+    on("22", "band_tree", band_tree)
+    on("22", "band_tree_chunked", band_tree, chunk_min=2 * LEAF_BAND,
+       chunk_panel=16)
 
     a = designed(N, 1)
     s_ = D.distributed_eigen_s
@@ -208,21 +238,50 @@ def world(mesh):
                 "comm_time": inf.comm_time, "elapsed": inf.elapsed}
 
     on("22", "info", info)
+
+    # distributed_eigen_sx: against the JAX package at N, against the
+    # single-device eigen_sx at N_PAD_SX (padded to 48 on every mesh) and
+    # in the modes
+    sx = D.distributed_eigen_sx
+
+    def sx_info(m):
+        w, z, inf = sx(torch.tensor(a), m, config=config(), with_info=True)
+        return {"w": w, "z": D.gather_matrix(z, m, (N, N)),
+                "report": inf.comm_stats.report(),
+                "comm_time": inf.comm_time, "elapsed": inf.elapsed}
+
+    on("22", "sx_22", sx_info)
+    on("14", "sx_14", _solve, sx, a, n=N)
+    a40 = designed(N_PAD_SX, 6)
+    on("22", "sx_pad_22", _solve, sx, a40, n=N_PAD_SX)
+    on("41", "sx_pad_41", _solve, sx, a40, n=N_PAD_SX)
+    on("12", "sx_pad_12_f32", _solve, sx, a40, n=N_PAD_SX, dtype=np.float32)
+    on("13", "sx_pad_13", _solve, sx, a40, n=N_PAD_SX)
+    for mode in "NXTSC":
+        on("22", f"sx_mode_{mode}", _solve, sx, a48, n=N_PAD, nvec=20,
+           mode=mode)
+    on("22", "sx_again", _solve, sx, a40, n=N_PAD_SX)
+    on("22", "sx_nan", _solve, sx, np.where(np.eye(N_PAD) > 0, np.nan, a48),
+       n=N_PAD)
+    on("22", "training_step", lambda m: dict(zip(
+        ("w", "z", "resid"), D.training_step(m, 32, torch.float64))))
+    on("22", "dryrun", dryrun_rank, n=N_DRYRUN)
     return out
 
 
-def card_solve(mesh, n: int):
-    """Frank n f32 through ``distributed_eigen_s`` on the card: w, the
-    checks on the gathered Z, and this rank's ``sub_matmul`` launches."""
+def card_solve(mesh, n: int, driver: str = "s"):
+    """Frank n f32 through ``distributed_eigen_s`` (`driver` "s") or
+    ``distributed_eigen_sx`` ("sx") on the card: w, the checks on the
+    gathered Z, and this rank's ``sub_matmul`` launches."""
     from eigenexa_tpu_torch.ops import kernels
-    from eigenexa_tpu_torch.parallel.distributed import (distributed_eigen_s,
-                                                         gather_matrix)
+    from eigenexa_tpu_torch.parallel import distributed as D
+    from eigenexa_tpu_torch.parallel.distributed import gather_matrix
     from eigenexa_tpu_torch.testing import (frank, orthogonality_check,
                                             residual_check)
 
     a = frank(n, torch.float32, mesh.device)
     kernels.LAUNCHES["sub_matmul"] = 0
-    w, z = distributed_eigen_s(a, mesh)
+    w, z = getattr(D, f"distributed_eigen_{driver}")(a, mesh)
     launches = kernels.LAUNCHES["sub_matmul"]
     z = gather_matrix(z, mesh, (n, n))
     return {"w": w, "launches": launches,

@@ -250,10 +250,18 @@ def test_distributed_flags_name_a17(argv, capsys):
         assert out.count("residual: PASSED  orthogonality: PASSED") == 2
 
 
-def test_eigen_sx_line_under_x_names_a17b():
-    with pytest.raises(NotImplementedError, match="A17b"):
-        main(["-x", "2", "2", "-n", "64", "--solver", "0", "--device", "cpu",
-              "--backend", "gloo"])
+def test_eigen_sx_line_under_x_runs_distributed_eigen_sx(capsys):
+    """An eigen_sx line under -x (ROADMAP A17b) runs distributed_eigen_sx
+    on gloo ranks on the CPU (f32): rank 0's report with its checks and the
+    COMM_STAT block."""
+    assert main(["-x", "2", "2", "--solver", "0", "-n", "64", "--device",
+                 "cpu", "--backend", "gloo", "--timeout", "120"]) == 0
+    out = capsys.readouterr().out
+    assert "--- eigen_sx (distributed)  N=64" in out and "grid=2x2" in out
+    assert "dtype=float32" in out
+    assert "COMM_STAT" in out and "  total    count" in out
+    assert "*** residual        *** : PASSED" in out
+    assert "*** orthogonality   *** : PASSED" in out
 
 
 def test_distributed_flags_keep_the_backend_rule():

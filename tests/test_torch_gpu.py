@@ -748,3 +748,16 @@ def test_distributed_eigen_s_on_the_card(cuda, shape, backend):
         assert got["residual"] < 768 and got["orthogonality"] < 8, got
         assert got["launches"] > 0
         assert np.array_equal(got["w"], w0)
+
+
+def test_distributed_eigen_sx_on_the_card(cuda):
+    """A 1×1 NCCL mesh: Frank n = 1024 f32 through distributed_eigen_sx
+    passes its checks, with one ``sub_matmul`` launch a panel (16) and a
+    WY block (8)."""
+    import _torch_dist_cases as cases
+    from eigenexa_tpu_torch.parallel import launch
+
+    got, = launch.spawn(cases.card_solve, (1, 1), "nccl", "cuda", 1024,
+                        "sx", timeout=300)
+    assert got["residual"] < 768 and got["orthogonality"] < 8, got
+    assert got["launches"] == 1024 // 64 + 1024 // 128

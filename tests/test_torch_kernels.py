@@ -764,13 +764,15 @@ def test_chip_smoke_complex_kernel_phase_passes_on_the_cpu():
                                    block=64, ragged=(300, 277), rule=130)
     assert [(r["case"], r["dtype"]) for r in rows] == [
         (case, dtype) for dtype in ("complex64", "complex128")
-        for case in ("rank2k", "wy", "ragged_k5", "ragged_k130",
-                     "under_rule", "over_rule", "same_bits_rank2k")]
-    assert rows[0]["m"] == 192 and rows[3]["k"] == 130
-    assert [r["m"] for r in rows[4:6]] == [129, 130]
+        for case in ("rank2k", "wy", "dist_block", "ragged_k5",
+                     "ragged_k130", "under_rule", "over_rule",
+                     "same_bits_rank2k")]
+    assert rows[0]["m"] == 192 and rows[4]["k"] == 130
+    assert rows[2]["m"] == cs.N_DIST // 2
+    assert [r["m"] for r in rows[5:7]] == [129, 130]
     assert all(r["max_abs_err"] <= r["bound"] for r in rows)
     assert {r.get("kernel") for r in rows} == {"c64", "c128", None}
-    assert rows[6]["kernels"] == ["c64", "c64"]
+    assert rows[7]["kernels"] == ["c64", "c64"]
     assert tk.LAUNCHES == before
 
 
@@ -908,19 +910,22 @@ def test_chip_smoke_large_phase_passes_on_the_cpu(monkeypatch):
 
 def test_chip_smoke_dist_phase_passes_on_the_cpu(monkeypatch):
     """The card script's dist phase at small sizes with both meshes on
-    gloo CPU ranks: every case's checks, reruns bitwise equal, the same w
-    on every rank, and the 2×2 mesh's w within the bounds of the 1×1
-    mesh's.  CPU tensors launch nothing, so the launch counts are patched
-    to 0."""
+    gloo CPU ranks: every case's checks (eigen_sx's among them), reruns
+    bitwise equal, the same w on every rank, the 2×2 mesh's w within the
+    bounds of the 1×1 mesh's, and the four-driver dryrun at n = 32; then
+    the entry phase.  CPU tensors launch nothing, so the launch counts are
+    patched to 0."""
     cs = _chip_smoke()
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)   # the ranks load it
-    for name, value in (("N_SLICE", 96), ("N_DIST", 64),
-                        ("N_DIST_SMALL", 48), ("N_DIST_H", 64),
-                        ("DIST_TIMEOUT", 120)):
+    for name, value in (("N_SLICE", 96), ("N_DIST", 64), ("N_DIST_H", 64),
+                        ("N_DRYRUN", 32), ("DIST_TIMEOUT", 120)):
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "DIST_MESHES", (((1, 1), "gloo"),
                                             ((2, 2), "gloo")))
-    monkeypatch.setattr(cs, "dist_launches", lambda *args: 0)
     zeros = dict.fromkeys(tk.LAUNCHES, 0)
-    assert cs.dist_phase(torch.device("cpu")) == {"nccl_1x1": zeros,
-                                                  "gloo_2x2": zeros}
+    monkeypatch.setattr(cs, "dist_launches", lambda *args: dict(zeros))
+    monkeypatch.setattr(cs, "_want", lambda **counts: dict(zeros))
+    assert cs.dist_phase(torch.device("cpu")) == dict.fromkeys(
+        ("nccl_1x1", "gloo_2x2", "sx nccl_1x1", "sx gloo_2x2",
+         "sx N gloo_2x2"), zeros)
+    assert cs.entry_phase(torch.device("cpu")) == zeros
