@@ -168,10 +168,11 @@ of the memory rule, ``householder.PEAK_N2`` and ``PEAK_MERGE``).
 ``python3 chip_smoke.py --dist`` runs the dist and entry phases alone after
 the build and prints no result line.
 
-``python3 chip_smoke.py --trd-profile N`` profiles one reduction of each
-implementation and each driver (``eigen_s``'s TRD-BLK, ``eigen_sx``'s
-PRD-BLK) at Frank n = N with ``torch.profiler`` and prints the
-device-busy time, the idle share and the leading kernels.
+``python3 chip_smoke.py --trd-profile N`` reads the program's spans over
+one reduction of each implementation and each driver (``eigen_s``'s and
+``eigen_h``'s TRD-BLK, ``eigen_sx``'s PRD-BLK) at Frank n = N: host µs and
+kernels a column (a reflector pair), the stage's idle share and the
+per-span table.
 """
 
 import json
@@ -2260,53 +2261,58 @@ def memory_phase(device, sizes=(N_SLICE, N_WINDOWED, N_LARGE)):
 
 
 def trd_profile(device, n: int) -> None:
-    """``--trd-profile N``: torch.profiler over one reduction (mode C) of
-    each implementation and each driver at Frank n f32 (``eigen_s``'s
-    TRD-BLK, ``eigen_sx``'s PRD-BLK): wall seconds, device-busy seconds
-    (the sum of kernel times: one stream, so they do not overlap), the
-    idle share, the kernel count a column (a reflector pair for
-    ``eigen_sx``) and the kernels that lead."""
+    """``--trd-profile N``: the program's spans over one reduction (mode C)
+    of each implementation and driver at Frank n (``eigen_s``'s TRD-BLK and
+    ``eigen_sx``'s PRD-BLK in f32, rolled and windowed; ``eigen_h``'s
+    complex rolled one in c64), through ``perfbench/spantrace.py``: the
+    host µs a column (a reflector pair for ``eigen_sx``) from a profiled
+    solve's ``trd.column`` (``prd.pair``) spans; the kernels a column
+    launches, the stage's idle share (the device busy inside its span in
+    an annotated solve under ``torch.profiler``, over the profiled solve's
+    stage seconds) and the per-span table from that annotated solve."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from eigenexa_tpu_torch import eigen_s, eigen_sx
+    from eigenexa_tpu_torch import eigen_h, eigen_s, eigen_sx
     from eigenexa_tpu_torch.ops import householder
-    from eigenexa_tpu_torch.testing import frank
+    from eigenexa_tpu_torch.testing import frank, frank_hermitian
+    from eigenexa_tpu_torch.utils.profiler import Profiler
+    from perfbench import devtrace, spantrace
 
-    a = frank(n, torch.float32, device)
+    real = frank(n, torch.float32, device)
+    cases = (("eigen_s", eigen_s, real, "trd.column", "TRD-BLK",
+              ("rolled", "windowed")),
+             ("eigen_sx", eigen_sx, real, "prd.pair", "PRD-BLK",
+              ("rolled", "windowed")),
+             ("eigen_h", eigen_h,
+              frank_hermitian(n, torch.complex64, device=device),
+              "trd.column", "TRD-BLK", ("rolled",)))
     old = householder.TRD_IMPL
-    drivers = (("eigen_s", eigen_s, "column",
-                expected_launches_windowed(n)["symv_lower"]),
-               ("eigen_sx", eigen_sx, "pair",
-                expected_launches_sx(n, True)["symv_lower"]))
     try:
-        for name, drive, step, steps in drivers:
-            # walls of both before any profiler has run
-            walls = {}
-            for impl in ("rolled", "windowed", "windowed", "rolled"):
+        for name, drive, a, step, stage, impls in cases:
+            for impl in impls:
                 householder.TRD_IMPL = impl
-                walls.setdefault(impl, []).append(
-                    drive(a, mode="C")[2].elapsed)
-            for impl in ("rolled", "windowed"):
-                householder.TRD_IMPL = impl
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    _, _, info = drive(a, mode="C")
-                events = [e for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA]
-                busy = sum(e.device_time_total for e in events) / 1e6
-                count = sum(e.count for e in events)
-                top = sorted(events, key=lambda e: -e.device_time_total)[:12]
-                wall = walls[impl][1]
-                print(f"trd-profile: {name} {impl} n={n} wall unprofiled "
-                      f"{walls[impl]} s (cold, warm), profiled "
-                      f"{info.elapsed:.4f} s, device busy {busy:.4f} s, "
-                      f"idle share of the warm unprofiled wall "
-                      f"{1 - busy / wall:.4f}, kernels {count} "
-                      f"({count / steps:.2f} a {step} of the {steps} of "
-                      f"full panels)", flush=True)
-                for e in top:
-                    print(f"trd-profile:   {e.device_time_total / 1e3:10.3f}"
-                          f" ms {e.count:8d} x {e.key[:90]}", flush=True)
+                drive(a, mode="C")
+                info = drive(a, mode="C", profile=True)[2]
+                host = info.spans
+                ranges, ops, wall = spantrace.profile_spans(
+                    lambda: drive(a, mode="C",
+                                  profile=Profiler(annotate=True)), device)
+                trace = spantrace.attribute(ranges, ops)
+                steps = spantrace.span_count(trace, step)
+                kernels = sum(devtrace.is_kernel(op[0]) for op in
+                              spantrace.ops_within(trace, step))
+                busy = spantrace.busy_s(spantrace.ops_within(trace, stage))
+                seconds = info.stages[stage]["seconds"]
+                print(f"trd-profile: {name} {impl} n={n} {a.dtype} "
+                      f"{stage} {seconds:.4f} s (profiled), annotated "
+                      f"{wall:.4f} s, host "
+                      f"{1e6 * host[step]['host_s'] / host[step]['count']:.2f}"
+                      f" us a {step} span, kernels "
+                      f"{kernels / steps:.2f} a {step} span ({steps} spans),"
+                      f" {stage} idle share {1 - busy / seconds:.4f}",
+                      flush=True)
+                for row in spantrace.table(trace, host):
+                    print("trd-profile:   " + " | ".join(map(str, row)),
+                          flush=True)
     finally:
         householder.TRD_IMPL = old
 

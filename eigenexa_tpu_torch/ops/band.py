@@ -46,6 +46,7 @@ from eigenexa_tpu_torch.ops.householder import householder_vector
 from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
                                             rank2k_update_window, symv_lower,
                                             symv_workspace)
+from eigenexa_tpu_torch.utils.profiler import span
 
 
 class BandResult(NamedTuple):
@@ -120,20 +121,22 @@ def band2_panel(b: torch.Tensor, nb: int):
     u_p, w_p = uw[:, :nb], uw[:, nb:]
     tau_p = b.new_zeros((nb,))
     for c0 in range(0, nb, 2):
-        u, w = u_p[:, :c0], w_p[:, :c0]
-        cols = b[:, c0:c0 + 2]
-        if c0:
-            cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
-        v_pair, tau0, tau1, t = pair_reflectors(cols[:, 0], cols[:, 1], c0)
-        # B·V, the PDSYMV2 analogue (reference: eigen_prd_au,
-        # src/eigen_prd_t2.F:90), as two matvecs: on the H100 cuBLAS's f32
-        # product with two columns summed so much worse than its matvec that
-        # the f32 reduction of Frank n=8192 kept w_scaled 132 against 0.96
-        # (tools/band_accuracy.py)
-        b_v = torch.stack([b @ v_pair[:, 0], b @ v_pair[:, 1]], dim=1)
-        w_p[:, c0:c0 + 2] = _pair_update(b_v, u, w, v_pair, t)
-        u_p[:, c0:c0 + 2] = v_pair
-        tau_p[c0:c0 + 2] = torch.stack([tau0, tau1])
+        with span("prd.pair"):
+            u, w = u_p[:, :c0], w_p[:, :c0]
+            cols = b[:, c0:c0 + 2]
+            if c0:
+                cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
+            v_pair, tau0, tau1, t = pair_reflectors(cols[:, 0], cols[:, 1],
+                                                    c0)
+            # B·V, the PDSYMV2 analogue (reference: eigen_prd_au,
+            # src/eigen_prd_t2.F:90), as two matvecs: on the H100 cuBLAS's
+            # f32 product with two columns summed so much worse than its
+            # matvec that the f32 reduction of Frank n=8192 kept w_scaled
+            # 132 against 0.96 (tools/band_accuracy.py)
+            b_v = torch.stack([b @ v_pair[:, 0], b @ v_pair[:, 1]], dim=1)
+            w_p[:, c0:c0 + 2] = _pair_update(b_v, u, w, v_pair, t)
+            u_p[:, c0:c0 + 2] = v_pair
+            tau_p[c0:c0 + 2] = torch.stack([tau0, tau1])
     return u_p, w_p, tau_p
 
 
@@ -174,21 +177,24 @@ def _band2_rolled(work: torch.Tensor, nb: int) -> BandResult:
     tau_full = work.new_zeros((n,))
     k = 0
     while n - k > nb + 2:
-        b = work[k:, k:]
-        u_p, w_p, tau_p = band2_panel(b, nb)
-        rows = slice(k, k + nb)
-        d[rows], e1[rows], e2[rows] = _extract_band(b, u_p, w_p, 0, nb)
-        # rank-2nb trailing update in place on the live block
-        # (reference: eigen_common_2update, src/eigen_t1.F:68)
-        trail = b[nb:, nb:]
-        rank2k_update(trail, u_p[nb:], w_p[nb:], out=trail)
-        v_full[k:, rows] = u_p
-        tau_full[rows] = tau_p
+        with span("prd.panel"):
+            b = work[k:, k:]
+            u_p, w_p, tau_p = band2_panel(b, nb)
+            rows = slice(k, k + nb)
+            d[rows], e1[rows], e2[rows] = _extract_band(b, u_p, w_p, 0, nb)
+            # rank-2nb trailing update in place on the live block
+            # (reference: eigen_common_2update, src/eigen_t1.F:68)
+            with span("prd.update"):
+                trail = b[nb:, nb:]
+                rank2k_update(trail, u_p[nb:], w_p[nb:], out=trail)
+            v_full[k:, rows] = u_p
+            tau_full[rows] = tau_p
         k += nb
     if n > k:
-        v, tau, dr, e1r, e2r = _band2_remainder(work[k:, k:])
-        v_full[k:, k:] = v
-        _put_tail(k, tau_full, d, e1, e2, tau, dr, e1r, e2r)
+        with span("prd.panel"):
+            v, tau, dr, e1r, e2r = _band2_remainder(work[k:, k:])
+            v_full[k:, k:] = v
+            _put_tail(k, tau_full, d, e1, e2, tau, dr, e1r, e2r)
     return BandResult(d=d, e1=e1[:max(n - 1, 0)], e2=e2[:max(n - 2, 0)],
                       v=v_full, tau=tau_full)
 
@@ -218,17 +224,19 @@ def _pair_win(b: torch.Tensor, j0: int, t0: int, nb: int, ws: dict):
     tau_p = b.new_zeros((nb,))
     for jc in range(0, nb, 2):
         c0 = j0 + jc
-        u, w = u_p[:, :jc], w_p[:, :jc]
-        cols = b[:, c0:c0 + 2]
-        if jc:
-            cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
-        v_pair, tau0, tau1, t = pair_reflectors(cols[:, 0], cols[:, 1], c0)
-        b_v = symv_lower(b, v_pair, t0=t0, **ws)
-        w_pair = _pair_update(b_v, u, w, v_pair, t)
-        w_pair[:j0] = 0
-        u_p[:, jc:jc + 2] = v_pair
-        w_p[:, jc:jc + 2] = w_pair
-        tau_p[jc:jc + 2] = torch.stack([tau0, tau1])
+        with span("prd.pair"):
+            u, w = u_p[:, :jc], w_p[:, :jc]
+            cols = b[:, c0:c0 + 2]
+            if jc:
+                cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
+            v_pair, tau0, tau1, t = pair_reflectors(cols[:, 0], cols[:, 1],
+                                                    c0)
+            b_v = symv_lower(b, v_pair, t0=t0, **ws)
+            w_pair = _pair_update(b_v, u, w, v_pair, t)
+            w_pair[:j0] = 0
+            u_p[:, jc:jc + 2] = v_pair
+            w_p[:, jc:jc + 2] = w_pair
+            tau_p[jc:jc + 2] = torch.stack([tau0, tau1])
     return u_p, w_p, tau_p
 
 
@@ -255,20 +263,25 @@ def _band2_windowed(b: torch.Tensor, nb: int) -> BandResult:
         # the pair matvec's output and scratch, one a window group
         ws = symv_workspace(b, t0, nc=2)
         for j0 in groups[g]:
-            u_p, w_p, tau_p = _pair_win(b, j0, t0, nb, ws)
-            rows = slice(j0, j0 + nb)
-            d[rows], e1[rows], e2[rows] = _extract_band(b, u_p, w_p, j0, nb)
-            rank2k_update_window(b, u_p, w_p, t0=t0)
-            # store V in place of the just-processed (dead) panel columns
-            b[:, rows] = u_p
-            tau_full[rows] = tau_p
+            with span("prd.panel"):
+                u_p, w_p, tau_p = _pair_win(b, j0, t0, nb, ws)
+                rows = slice(j0, j0 + nb)
+                d[rows], e1[rows], e2[rows] = _extract_band(b, u_p, w_p, j0,
+                                                            nb)
+                with span("prd.update"):
+                    rank2k_update_window(b, u_p, w_p, t0=t0)
+                # store V in place of the just-processed (dead) panel
+                # columns
+                b[:, rows] = u_p
+                tau_full[rows] = tau_p
     if n > k:
         # the live corner, which the full-square window update keeps
         # current in both triangles
-        v, tau, dr, e1r, e2r = _band2_remainder(b[k:, k:].clone())
-        b[:k, k:] = 0
-        b[k:, k:] = v
-        _put_tail(k, tau_full, d, e1, e2, tau, dr, e1r, e2r)
+        with span("prd.panel"):
+            v, tau, dr, e1r, e2r = _band2_remainder(b[k:, k:].clone())
+            b[:k, k:] = 0
+            b[k:, k:] = v
+            _put_tail(k, tau_full, d, e1, e2, tau, dr, e1r, e2r)
     return BandResult(d=d, e1=e1[:max(n - 1, 0)], e2=e2[:max(n - 2, 0)],
                       v=b, tau=tau_full)
 

@@ -45,6 +45,7 @@ import torch
 from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
                                             rank2k_update_window, symv_lower,
                                             symv_workspace, wy_apply)
+from eigenexa_tpu_torch.utils.profiler import span
 
 # dispatch override for tridiagonalize(impl="auto") and band2_reduce,
 # settable by assignment: "rolled" / "windowed" force; "auto" takes the
@@ -126,20 +127,25 @@ def householder_vector(x: torch.Tensor, p: int):
 
 def _panel_body(j: int, b, u_p, w_p, tau_p, e_p):
     """One column of the [dz]latrd-style panel recurrence, in place on the
-    panel buffers.  b is the (frozen) trailing block at panel start."""
+    panel buffers.  b is the (frozen) trailing block at panel start.  Its
+    spans: form, reflector, matvec, w (the column's four steps)."""
     # the column as updated by the previous in-panel rank-2 updates:
     # A_cur[:, j] = B[:, j] − U·conj(W[j]) − W·conj(U[j])
-    col = b[:, j] - u_p @ w_p[j].conj() - w_p @ u_p[j].conj()
-    v, tau, beta = householder_vector(col, j + 1)
+    with span("trd.column.form"):
+        col = b[:, j] - u_p @ w_p[j].conj() - w_p @ u_p[j].conj()
+    with span("trd.column.reflector"):
+        v, tau, beta = householder_vector(col, j + 1)
     # q = A_cur·v (reference: eigen_trd_au, src/eigen_trd_t2.F:161)
-    q = b @ v - u_p @ (w_p.conj().T @ v) - w_p @ (u_p.conj().T @ v)
+    with span("trd.column.matvec"):
+        q = b @ v - u_p @ (w_p.conj().T @ v) - w_p @ (u_p.conj().T @ v)
     # w = tau·q − (|tau|²/2)·(vᴴq)·v so that Hᴴ·A·H = A − v·wᴴ − w·vᴴ
     # (reference: eigen_trd_compute_v, src/eigen_trd_t6_3.F:85)
-    w = tau * q - (tau * tau.conj() * 0.5) * torch.vdot(v, q) * v
-    u_p[:, j] = v
-    w_p[:, j] = w
-    tau_p[j] = tau
-    e_p[j] = beta
+    with span("trd.column.w"):
+        w = tau * q - (tau * tau.conj() * 0.5) * torch.vdot(v, q) * v
+        u_p[:, j] = v
+        w_p[:, j] = w
+        tau_p[j] = tau
+        e_p[j] = beta
 
 
 def tridiag_panel(b: torch.Tensor, nb: int):
@@ -154,7 +160,8 @@ def tridiag_panel(b: torch.Tensor, nb: int):
     tau_p = b.new_zeros((nb,))
     e_p = b.real.new_zeros((nb,))
     for j in range(nb):
-        _panel_body(j, b, u_p, w_p, tau_p, e_p)
+        with span("trd.column"):
+            _panel_body(j, b, u_p, w_p, tau_p, e_p)
     return u_p, w_p, tau_p, e_p
 
 
@@ -176,27 +183,30 @@ def _tridiagonalize_rolled(work: torch.Tensor, nb: int) -> TridiagResult:
 
     k = 0
     while n - k > nb:
-        b = work[k:, k:]
-        u_p, w_p, tau_p, e_p = tridiag_panel(b, nb)
-        d[k:k + nb] = _panel_diag(b, u_p, w_p, nb)
-        # rank-2nb trailing update, in place on the live block
-        # (reference: eigen_common_2update, src/eigen_t1.F:68)
-        trail = b[nb:, nb:]
-        rank2k_update(trail, u_p[nb:], w_p[nb:], out=trail)
-        e[k:k + nb] = e_p
-        v_full[k:, k:k + nb] = u_p
-        tau_full[k:k + nb] = tau_p
+        with span("trd.panel"):
+            b = work[k:, k:]
+            u_p, w_p, tau_p, e_p = tridiag_panel(b, nb)
+            d[k:k + nb] = _panel_diag(b, u_p, w_p, nb)
+            # rank-2nb trailing update, in place on the live block
+            # (reference: eigen_common_2update, src/eigen_t1.F:68)
+            with span("trd.update"):
+                trail = b[nb:, nb:]
+                rank2k_update(trail, u_p[nb:], w_p[nb:], out=trail)
+            e[k:k + nb] = e_p
+            v_full[k:, k:k + nb] = u_p
+            tau_full[k:k + nb] = tau_p
         k += nb
 
     # remainder block (m <= nb): factor its columns; no trailing update
     m = n - k
     if m > 1:
-        b = work[k:, k:]
-        u_p, w_p, tau_p, e_p = tridiag_panel(b, m)
-        d[k:] = _panel_diag(b, u_p, w_p, m)
-        e[k:k + m - 1] = e_p[:m - 1]
-        v_full[k:, k:] = u_p
-        tau_full[k:] = tau_p
+        with span("trd.panel"):
+            b = work[k:, k:]
+            u_p, w_p, tau_p, e_p = tridiag_panel(b, m)
+            d[k:] = _panel_diag(b, u_p, w_p, m)
+            e[k:k + m - 1] = e_p[:m - 1]
+            v_full[k:, k:] = u_p
+            tau_full[k:] = tau_p
     elif m == 1:
         d[k] = work[k, k].real
     return TridiagResult(d=d, e=e[:n - 1], v=v_full, tau=tau_full)
@@ -234,17 +244,22 @@ def _panel_win(b: torch.Tensor, j0: int, t0: int, nb: int, ws: dict):
     e_p = b.new_zeros((nb,))
     for jc in range(nb):
         j = j0 + jc
-        col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
-        v, tau, beta = householder_vector(col, j + 1)
-        # q = A_cur·v: the window's matvec less the panel's first jc
-        # columns' corrections (U and W are zero above j0 >= t0·TM)
-        q = symv_lower(b, v, t0=t0, panel=uw, nb=jc, **ws)
-        w = tau * q - (tau * tau * 0.5) * torch.dot(v, q) * v
-        w[:j0] = 0
-        u_p[:, jc] = v
-        w_p[:, jc] = w
-        tau_p[jc] = tau
-        e_p[jc] = beta
+        with span("trd.column"):
+            with span("trd.column.form"):
+                col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
+            with span("trd.column.reflector"):
+                v, tau, beta = householder_vector(col, j + 1)
+            # q = A_cur·v: the window's matvec less the panel's first jc
+            # columns' corrections (U and W are zero above j0 >= t0·TM)
+            with span("trd.column.matvec"):
+                q = symv_lower(b, v, t0=t0, panel=uw, nb=jc, **ws)
+            with span("trd.column.w"):
+                w = tau * q - (tau * tau * 0.5) * torch.dot(v, q) * v
+                w[:j0] = 0
+                u_p[:, jc] = v
+                w_p[:, jc] = w
+                tau_p[jc] = tau
+                e_p[jc] = beta
     return u_p, w_p, tau_p, e_p
 
 
@@ -293,27 +308,30 @@ def _tridiagonalize_windowed(b: torch.Tensor, nb: int) -> TridiagResult:
     for g in sorted(groups):
         t0 = (g * group) // WIN_TM
         for j0 in groups[g]:
-            u_p, w_p, tau_p, e_p = _panel_win(b, j0, t0, nb, ws)
-            rows = slice(j0, j0 + nb)
-            d[rows] = (b.diagonal()[rows]
-                       - 2.0 * (u_p[rows] * w_p[rows]).sum(dim=1))
-            rank2k_update_window(b, u_p, w_p, t0=t0)
-            # store V in place of the just-processed (dead) panel columns
-            b[:, rows] = u_p
-            tau_full[rows] = tau_p
-            e[rows] = e_p
+            with span("trd.panel"):
+                u_p, w_p, tau_p, e_p = _panel_win(b, j0, t0, nb, ws)
+                rows = slice(j0, j0 + nb)
+                d[rows] = (b.diagonal()[rows]
+                           - 2.0 * (u_p[rows] * w_p[rows]).sum(dim=1))
+                with span("trd.update"):
+                    rank2k_update_window(b, u_p, w_p, t0=t0)
+                # store V in place of the just-processed (dead) panel columns
+                b[:, rows] = u_p
+                tau_full[rows] = tau_p
+                e[rows] = e_p
 
     # remainder panel (m <= nb) on the live corner, which the full-square
     # window update keeps current in both triangles
     m = n - k
     if m > 1:
-        b_rem = b[k:, k:]
-        u_p, w_p, tau_p, e_p = tridiag_panel(b_rem, m)
-        d[k:] = _panel_diag(b_rem, u_p, w_p, m)
-        e[k:k + m - 1] = e_p[:m - 1]
-        b[:k, k:] = 0
-        b[k:, k:] = u_p
-        tau_full[k:] = tau_p
+        with span("trd.panel"):
+            b_rem = b[k:, k:]
+            u_p, w_p, tau_p, e_p = tridiag_panel(b_rem, m)
+            d[k:] = _panel_diag(b_rem, u_p, w_p, m)
+            e[k:k + m - 1] = e_p[:m - 1]
+            b[:k, k:] = 0
+            b[k:, k:] = u_p
+            tau_full[k:] = tau_p
     elif m == 1:
         d[k] = b[k, k]
         b[:, k] = 0

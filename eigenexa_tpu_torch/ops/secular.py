@@ -46,6 +46,8 @@ from typing import NamedTuple
 
 import torch
 
+from eigenexa_tpu_torch.utils import profiler
+
 F64 = torch.float64
 # Smallest magnitude treated as nonzero — kept at the JAX package's value
 # for parity (solver inputs are pre-scaled into the safe range).
@@ -335,6 +337,20 @@ def _on_pole(ds, shift_d, mu, zh, active):
     return on_pole, dom
 
 
+def _count_merge(coords: int, active, on_pole) -> None:
+    """The merges' counters, where the active profiler annotates
+    (``profiler.annotating``): ``dc.coords`` the coordinates merged,
+    ``dc.deflated`` those not active, ``dc.on_pole`` the active roots
+    demoted to a unit column; summed on the device, in a span of their
+    own, ``dc.count``.  Otherwise no tensor op at all."""
+    if not profiler.annotating():
+        return
+    with profiler.span("dc.count"):
+        profiler.count("dc.coords", coords)
+        profiler.count("dc.deflated", (~active).sum())
+        profiler.count("dc.on_pole", on_pole.sum())
+
+
 def _vector_columns(ds, shift_c, mu_c, zh, active, act_c, keep_c, tgt_c):
     """Columns of U, the eigenvectors in rotated-sorted coordinates, of
     the roots λ = σ + μ given by shift_c and mu_c (B, p): ẑ_j/(d_j − λ)
@@ -374,6 +390,7 @@ def rank1_merge_core(d, z, rho) -> MergeCore:
     zh = _zhat(ds, shift_d, mu, rho, active, z_sign)
 
     on_pole, dom = _on_pole(ds, shift_d, mu, zh, active)
+    _count_merge(bsz * m, active, on_pole)
     # deflated columns: unit at self; on-pole-demoted: unit at dominant
     tgt = torch.where(on_pole, dom, _arange(m, d))
     u = _vector_columns(ds, shift_d, mu, zh, active, active,
@@ -434,6 +451,7 @@ def rank1_merge_apply_parts(d, z, rho, parts, panel: int = 1024,
     zh = torch.cat([_zhat(ds, shift_d, mu, rho, active, z_sign, rows)
                     for rows in panels], dim=1)
     on_pole, dom = _on_pole(ds, shift_d, mu, zh, active)
+    _count_merge(bsz * m, active, on_pole)
     keep = active & ~on_pole
     tgt = torch.where(on_pole, dom, _arange(m, ds))
     lam = torch.where(active, shift_d + mu, ds)

@@ -39,6 +39,7 @@ import torch
 from eigenexa_tpu_torch.ops.secular import (rank1_merge_apply_parts,
                                             rank1_merge_core)
 from eigenexa_tpu_torch.solvers.dc_tree import _pad_sizes
+from eigenexa_tpu_torch.utils import profiler
 
 F64 = torch.float64
 # the band-2 twins of dc_tree._LEVEL_CHUNK_MIN / _LEVEL_CHUNK_PANEL (the
@@ -90,7 +91,8 @@ def _merge_level_band2(w, q, rows_lo, rows_hi, a, b, c, f, h, vec_dtype):
     # p = s: the left block's last two rows, the right block's first
     z1 = torch.cat([a[:, None] * rh[:, 0, 0] + b[:, None] * rh[:, 0, 1],
                     c[:, None] * rl[:, 1, 0]], dim=1)
-    core1 = rank1_merge_core(w.reshape(half, 2 * s), z1, ones)
+    with profiler.span("dc.secular"):
+        core1 = rank1_merge_core(w.reshape(half, 2 * s), z1, ones)
     c1 = core1.unsorted_c()
     lam1 = core1.lam
     del core1
@@ -101,7 +103,8 @@ def _merge_level_band2(w, q, rows_lo, rows_hi, a, b, c, f, h, vec_dtype):
     row_pp1 = (rl[:, 1, 1, None, :] @ c1[:, s:])[:, 0]   # row p+1
     # merge 2: u2 = f·δ_{p-1} + h·δ_{p+1} in the merged basis
     z2 = f[:, None] * row_pm1 + h[:, None] * row_pp1
-    core2 = rank1_merge_core(lam1, z2, ones)
+    with profiler.span("dc.secular"):
+        core2 = rank1_merge_core(lam1, z2, ones)
     c2 = core2.unsorted_c()
     cu = (c1 @ c2).to(vec_dtype)
     del c1
@@ -128,14 +131,17 @@ def _merge_level_band2_chunked(w, q, rows_lo, rows_hi, a, b, c, f, h,
     z1 = torch.cat([a[:, None] * rh[:, 0, 0] + b[:, None] * rh[:, 0, 1],
                     c[:, None] * rl[:, 1, 0]], dim=1)
     q1 = torch.empty((half, 2 * s, 2 * s), dtype=vec_dtype, device=q.device)
-    lam1, (_, _, lo1, hi1, pm1, pp1) = rank1_merge_apply_parts(
-        w.reshape(half, 2 * s), z1, ones,
-        ((q2[:, 0], 0), (q2[:, 1], s), (rl[:, 0], 0), (rh[:, 1], s),
-         (rh[:, 0, 1, None, :], 0), (rl[:, 1, 1, None, :], s)),
-        panel=panel, outs=(q1[:, :s], q1[:, s:], None, None, None, None))
+    with profiler.span("dc.secular"):
+        lam1, (_, _, lo1, hi1, pm1, pp1) = rank1_merge_apply_parts(
+            w.reshape(half, 2 * s), z1, ones,
+            ((q2[:, 0], 0), (q2[:, 1], s), (rl[:, 0], 0), (rh[:, 1], s),
+             (rh[:, 0, 1, None, :], 0), (rl[:, 1, 1, None, :], s)),
+            panel=panel, outs=(q1[:, :s], q1[:, s:], None, None, None,
+                               None))
     z2 = f[:, None] * pm1[:, 0] + h[:, None] * pp1[:, 0]
-    lam2, (q_new, lo2, hi2) = rank1_merge_apply_parts(
-        lam1, z2, ones, ((q1, 0), (lo1, 0), (hi1, 0)), panel=panel)
+    with profiler.span("dc.secular"):
+        lam2, (q_new, lo2, hi2) = rank1_merge_apply_parts(
+            lam1, z2, ones, ((q1, 0), (lo1, 0), (hi1, 0)), panel=panel)
     return lam2, q_new, lo2, hi2
 
 
@@ -210,26 +216,29 @@ def _solve_blocks(d_mod, e1_mod, e2_pad, coefs, g0: int, size: int,
     `chunk_min` wide takes the panel-chunked merges."""
     dev = d_mod.device
     nblk = size // leaf
-    first = g0 + torch.arange(nblk, device=dev)[:, None] * leaf
-    w, q = _leaf_eigh_band2(
-        d_mod[g0:g0 + size].reshape(nblk, leaf),
-        e1_mod[first + torch.arange(leaf - 1, device=dev)],
-        e2_pad[first + torch.arange(leaf - 2, device=dev)])
-    rows_lo = q[:, :2, :]          # f64 boundary rows before the cast
-    rows_hi = q[:, -2:, :]
-    q = q.to(vec_dtype)
+    with profiler.span("dc.leaves"):
+        first = g0 + torch.arange(nblk, device=dev)[:, None] * leaf
+        w, q = _leaf_eigh_band2(
+            d_mod[g0:g0 + size].reshape(nblk, leaf),
+            e1_mod[first + torch.arange(leaf - 1, device=dev)],
+            e2_pad[first + torch.arange(leaf - 2, device=dev)])
+        rows_lo = q[:, :2, :]          # f64 boundary rows before the cast
+        rows_hi = q[:, -2:, :]
+        q = q.to(vec_dtype)
 
     # level ℓ joins blocks of leaf·2^ℓ at the cuts g0 + leaf·2^ℓ·(2i+1)
     s = leaf
     while s < size:
-        ci = torch.arange(g0 + s, g0 + size, 2 * s, device=dev) // leaf - 1
-        level = tuple(x[ci] for x in coefs)
-        if 2 * s >= chunk_min:
-            w, q, rows_lo, rows_hi = _merge_level_band2_chunked(
-                w, q, rows_lo, rows_hi, *level, vec_dtype, chunk_panel)
-        else:
-            w, q, rows_lo, rows_hi = _merge_level_band2(
-                w, q, rows_lo, rows_hi, *level, vec_dtype)
+        with profiler.span("dc.level"):
+            ci = (torch.arange(g0 + s, g0 + size, 2 * s, device=dev) // leaf
+                  - 1)
+            level = tuple(x[ci] for x in coefs)
+            if 2 * s >= chunk_min:
+                w, q, rows_lo, rows_hi = _merge_level_band2_chunked(
+                    w, q, rows_lo, rows_hi, *level, vec_dtype, chunk_panel)
+            else:
+                w, q, rows_lo, rows_hi = _merge_level_band2(
+                    w, q, rows_lo, rows_hi, *level, vec_dtype)
         s *= 2
     return (w.reshape(size), q.reshape(size, size),
             rows_lo.reshape(2, size), rows_hi.reshape(2, size))

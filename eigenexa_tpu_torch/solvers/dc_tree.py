@@ -32,6 +32,7 @@ import torch
 
 from eigenexa_tpu_torch.ops.secular import (rank1_merge_apply_parts,
                                             rank1_merge_core)
+from eigenexa_tpu_torch.utils import profiler
 
 F64 = torch.float64
 # merges at least this wide build C in column panels of _LEVEL_CHUNK_PANEL
@@ -75,7 +76,8 @@ def _merge_level(d, q, row0, row1, rho, sgn, vec_dtype):
     r0 = row0.reshape(h, 2, s)
     r1 = row1.reshape(h, 2, s)
     z = torch.cat([r1[:, 0], sgn[:, None] * r0[:, 1]], dim=1)
-    core = rank1_merge_core(d.reshape(h, 2 * s), z, rho)
+    with profiler.span("dc.secular"):
+        core = rank1_merge_core(d.reshape(h, 2 * s), z, rho)
     lam = core.lam
     # rows of c back to pre-sort coordinate order (a gather with the
     # inverse permutation), then the block-diagonal basis in two
@@ -105,11 +107,12 @@ def _merge_level_chunked(d, q, row0, row1, rho, sgn, vec_dtype,
     r1 = row1.reshape(h, 2, s)
     z = torch.cat([r1[:, 0], sgn[:, None] * r0[:, 1]], dim=1)
     out = torch.empty((h, 2 * s, 2 * s), dtype=vec_dtype, device=q.device)
-    lam, (_, _, row0_new, row1_new) = rank1_merge_apply_parts(
-        d.reshape(h, 2 * s), z, rho,
-        ((q2[:, 0], 0), (q2[:, 1], s), (r0[:, 0, None, :], 0),
-         (r1[:, 1, None, :], s)),
-        panel=panel, outs=(out[:, :s], out[:, s:], None, None))
+    with profiler.span("dc.secular"):
+        lam, (_, _, row0_new, row1_new) = rank1_merge_apply_parts(
+            d.reshape(h, 2 * s), z, rho,
+            ((q2[:, 0], 0), (q2[:, 1], s), (r0[:, 0, None, :], 0),
+             (r1[:, 1, None, :], s)),
+            panel=panel, outs=(out[:, :s], out[:, s:], None, None))
     return lam, out, row0_new[:, 0], row1_new[:, 0]
 
 
@@ -154,24 +157,26 @@ def solve_tridiag_dc(d: torch.Tensor, e: torch.Tensor, leaf: int = 32,
     d_mod[cuts] -= rho_all
 
     nblk = m // leaf
-    e_idx = (torch.arange(nblk, device=dev)[:, None] * leaf
-             + torch.arange(leaf - 1, device=dev)[None, :])
-    w, q = _leaf_eigh(d_mod.reshape(nblk, leaf), e_pad[e_idx])
-    row0 = q[:, 0, :]            # f64 boundary rows before the cast
-    row1 = q[:, -1, :]
-    q = q.to(vec_dtype)
+    with profiler.span("dc.leaves"):
+        e_idx = (torch.arange(nblk, device=dev)[:, None] * leaf
+                 + torch.arange(leaf - 1, device=dev)[None, :])
+        w, q = _leaf_eigh(d_mod.reshape(nblk, leaf), e_pad[e_idx])
+        row0 = q[:, 0, :]            # f64 boundary rows before the cast
+        row1 = q[:, -1, :]
+        q = q.to(vec_dtype)
 
     # level ℓ joins blocks of size leaf·2^ℓ at cut positions leaf·2^ℓ·(2b+1)
     for lvl in range(levels):
         s = leaf * (2 ** lvl)
-        e_cut = e_pad[torch.arange(s, m, 2 * s, device=dev) - 1]
-        sgn = torch.where(e_cut >= 0, 1.0, -1.0).to(F64)
-        if 2 * s >= _LEVEL_CHUNK_MIN:
-            w, q, row0, row1 = _merge_level_chunked(
-                w, q, row0, row1, e_cut.abs(), sgn, vec_dtype,
-                _LEVEL_CHUNK_PANEL)
-        else:
-            w, q, row0, row1 = _merge_level(w, q, row0, row1, e_cut.abs(),
-                                            sgn, vec_dtype)
+        with profiler.span("dc.level"):
+            e_cut = e_pad[torch.arange(s, m, 2 * s, device=dev) - 1]
+            sgn = torch.where(e_cut >= 0, 1.0, -1.0).to(F64)
+            if 2 * s >= _LEVEL_CHUNK_MIN:
+                w, q, row0, row1 = _merge_level_chunked(
+                    w, q, row0, row1, e_cut.abs(), sgn, vec_dtype,
+                    _LEVEL_CHUNK_PANEL)
+            else:
+                w, q, row0, row1 = _merge_level(w, q, row0, row1,
+                                                e_cut.abs(), sgn, vec_dtype)
 
     return w.reshape(m)[:n], q.reshape(m, m)[:n, :n]

@@ -26,9 +26,9 @@ import torch
 
 from eigenexa_tpu_torch.interop import as_tensor
 from eigenexa_tpu_torch.runtime import EigenContext, default_context
-from eigenexa_tpu_torch.solvers.solver import SolveInfo, eigen_s, flop_model
+from eigenexa_tpu_torch.solvers.solver import (SolveInfo, eigen_s,
+                                               flop_model, profiled)
 from eigenexa_tpu_torch.utils import profiler
-from eigenexa_tpu_torch.utils.profiler import Profiler
 from eigenexa_tpu_torch.utils.sync import device_sync
 
 
@@ -43,7 +43,7 @@ def gev_flop_model(n: int, nvec: int, mode: str = "A") -> float:
 
 
 def eigen_gev(a, b, nvec: Optional[int] = None, mode: str = "A",
-              ctx: Optional[EigenContext] = None, profile: bool = False
+              ctx: Optional[EigenContext] = None, profile=False
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor], SolveInfo]:
     """Solve A·x = λ·B·x for symmetric A and symmetric positive definite B
     (real, f32 or f64; numpy arrays are moved to the context's device;
@@ -54,7 +54,8 @@ def eigen_gev(a, b, nvec: Optional[int] = None, mode: str = "A",
     in mode N, no F·Z′); other modes raise, as the reference computes
     eigenpairs only.  profile=True fills SolveInfo.stages with the seconds
     of eigen_s(B) (SOLVE-B), of F and F′AF (REDUCE), of eigen_s(A′)
-    (SOLVE-A') and of F·Z′ (BACK).
+    (SOLVE-A') and of F·Z′ (BACK), and SolveInfo.spans and counters with
+    the spans of both inner solves (``profile`` may be a ``Profiler``).
     """
     ctx = ctx or default_context()
     mode = mode.upper()
@@ -68,36 +69,36 @@ def eigen_gev(a, b, nvec: Optional[int] = None, mode: str = "A",
         b = as_tensor(b, device=ctx.device)
     n = a.shape[0]
     nvec = n if nvec is None else min(nvec, n)
-    prof = Profiler() if profile else None
+    prof = profiler.for_solve(profile)
 
     stage = functools.partial(profiler.stage, prof, device=a.device)
 
     t0 = time.perf_counter()
-    with stage("SOLVE-B", flop_model(n, n, True)):
-        wb, vb, _ = eigen_s(b, mode="A", ctx=ctx)
-    with stage("REDUCE", 4.0 * n ** 3):
-        # positive-definiteness guard: NaN poison (the reference aborts)
-        pd_ok = wb[0] > 0
-        safe_wb = torch.where(wb > 0, wb, 1.0)
-        dinv_sqrt = torch.where(pd_ok, 1.0 / torch.sqrt(safe_wb),
-                                float("nan")).to(a.dtype)
-        f = vb * dinv_sqrt[None, :]
-        del vb
-        a2 = f.T @ a @ f
-        a2 = 0.5 * (a2 + a2.T)   # re-symmetrize (the congruence rounds)
-    with stage("SOLVE-A'", flop_model(n, 0 if mode == "N" else nvec,
-                                      mode == "A")):
-        if mode == "N":
-            w, z2 = eigen_s(a2, mode="N", ctx=ctx)[0], None
-        else:
-            w, z2, _ = eigen_s(a2, nvec=nvec, mode="A", ctx=ctx)
-    z = None
-    if z2 is not None:
-        with stage("BACK", 2.0 * n * n * nvec):
-            z = f @ z2
+    with profiler.active(prof):
+        with stage("SOLVE-B", flop_model(n, n, True)):
+            wb, vb, _ = eigen_s(b, mode="A", ctx=ctx)
+        with stage("REDUCE", 4.0 * n ** 3):
+            # positive-definiteness guard: NaN poison (the reference aborts)
+            pd_ok = wb[0] > 0
+            safe_wb = torch.where(wb > 0, wb, 1.0)
+            dinv_sqrt = torch.where(pd_ok, 1.0 / torch.sqrt(safe_wb),
+                                    float("nan")).to(a.dtype)
+            f = vb * dinv_sqrt[None, :]
+            del vb
+            a2 = f.T @ a @ f
+            a2 = 0.5 * (a2 + a2.T)   # re-symmetrize (the congruence rounds)
+        with stage("SOLVE-A'", flop_model(n, 0 if mode == "N" else nvec,
+                                          mode == "A")):
+            if mode == "N":
+                w, z2 = eigen_s(a2, mode="N", ctx=ctx)[0], None
+            else:
+                w, z2, _ = eigen_s(a2, nvec=nvec, mode="A", ctx=ctx)
+        z = None
+        if z2 is not None:
+            with stage("BACK", 2.0 * n * n * nvec):
+                z = f @ z2
     device_sync(w, z)
     elapsed = time.perf_counter() - t0
-    stages = {} if prof is None else prof.stages()
     info = SolveInfo(flops=gev_flop_model(n, nvec, mode), elapsed=elapsed,
-                     n=n, nvec=nvec, mode=mode, stages=stages)
+                     n=n, nvec=nvec, mode=mode, **profiled(prof))
     return w, z, info

@@ -31,7 +31,7 @@ from eigenexa_tpu_torch.runtime import (EigenContext, apply_precision,
 from eigenexa_tpu_torch.solvers import dc
 from eigenexa_tpu_torch.solvers.solver import (_DC_LEAF, SolveInfo,
                                                dc_flop_model, flop_model,
-                                               matrix_scaling)
+                                               matrix_scaling, profiled)
 from eigenexa_tpu_torch.solvers.trbak import back_transform
 from eigenexa_tpu_torch.utils import profiler
 from eigenexa_tpu_torch.utils.profiler import Profiler
@@ -82,7 +82,7 @@ def _solve_h(a, nvec: int, mode: str, nb_f: int, nb_b: int,
 
 
 def eigen_h(a, nvec: Optional[int] = None, mode: str = "A",
-            ctx: Optional[EigenContext] = None, profile: bool = False
+            ctx: Optional[EigenContext] = None, profile=False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor], SolveInfo]:
     """Hermitian eigensolver: A = Z·diag(w)·Zᴴ with real ascending w.
 
@@ -94,7 +94,8 @@ def eigen_h(a, nvec: Optional[int] = None, mode: str = "A",
     float64 but in modes S and C, where it is T's real diagonal; Z (n×nvec)
     complex, or None in mode N; SolveInfo).  SolveInfo.flops is 4× the
     real model; profile=True fills SolveInfo.stages with the TRD-BLK /
-    D&C (EIGVALSH in mode N) / TRDBAK split.
+    D&C (EIGVALSH in mode N) / TRDBAK split, and SolveInfo.spans and
+    counters as :func:`eigen_s`'s (``profile`` may be a ``Profiler``).
     """
     if isinstance(a, tuple):
         raise NotImplementedError(
@@ -115,16 +116,16 @@ def eigen_h(a, nvec: Optional[int] = None, mode: str = "A",
                  else torch.complex64)
     n = a.shape[0]
     nvec = n if nvec is None else min(nvec, n)
-    prof = Profiler() if profile else None
+    prof = profiler.for_solve(profile)
     # hand the matrix over without a lingering frame binding
     holder = [a]
     del a
-    w, z = _solve_h(holder.pop(), nvec, mode, cfg.panel_forward,
-                    cfg.panel_backward, prof)
+    with profiler.active(prof):
+        w, z = _solve_h(holder.pop(), nvec, mode, cfg.panel_forward,
+                        cfg.panel_backward, prof)
     device_sync(w, z)
     elapsed = time.perf_counter() - t0
-    stages = {} if prof is None else prof.stages()
     info = SolveInfo(flops=4.0 * flop_model(n, nvec, mode in ("A", "X", "S")),
                      elapsed=elapsed, n=n, nvec=nvec, mode=mode,
-                     stages=stages)
+                     **profiled(prof))
     return w, z, info

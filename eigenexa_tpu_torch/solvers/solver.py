@@ -68,7 +68,10 @@ class SolveInfo:
     solve ran with profile=True.  `comm_stats` is the COMM_STAT table
     (``parallel.collectives.CommStats``, src/eigen_devel.F:98-117) that the
     distributed drivers fill, and `comm_time` its calibrated time; on one
-    device they are None and 0."""
+    device they are None and 0.  `spans` and `counters` are the solve's
+    profiler's (``utils/profiler.py``): {name: {"count", "host_s",
+    "self_s"}} of its spans, and {name: int} of the counters, which only an
+    annotating profiler fills."""
 
     flops: float = 0.0       # model flops: 4/3·n³ (TRD) + dc + 2·nvec·n²
     elapsed: float = 0.0     # wall seconds for the whole solve
@@ -78,6 +81,8 @@ class SolveInfo:
     mode: str = "A"
     stages: dict = dataclasses.field(default_factory=dict)
     comm_stats: Optional[object] = None
+    spans: dict = dataclasses.field(default_factory=dict)
+    counters: dict = dataclasses.field(default_factory=dict)
 
     @property
     def gflops(self) -> float:
@@ -242,7 +247,7 @@ def _solve_stage_r(stage_data, nvec: Optional[int], band: int, vec_dtype,
 
 
 def _drive(a, nvec: Optional[int], mode: str, ctx: Optional[EigenContext],
-           stage_data, profile: bool, band: int):
+           stage_data, profile, band: int):
     """What both drivers share: the context, the mode, the hand-over of the
     matrix, the clock and the telemetry."""
     ctx = ctx or default_context()
@@ -263,24 +268,33 @@ def _drive(a, nvec: Optional[int], mode: str, ctx: Optional[EigenContext],
         a = as_tensor(a, device=ctx.device)
     n = a.shape[0]
     nvec = n if nvec is None else min(nvec, n)
-    prof = Profiler() if profile else None
+    prof = profiler.for_solve(profile)
     # hand the matrix over without a lingering frame binding
     holder = [a]
     del a
-    w, z = _solve(holder.pop(), nvec, mode, cfg.panel_forward,
-                  cfg.panel_backward, prof, band)
+    with profiler.active(prof):
+        w, z = _solve(holder.pop(), nvec, mode, cfg.panel_forward,
+                      cfg.panel_backward, prof, band)
     device_sync(w, z)
     elapsed = time.perf_counter() - t0
-    stages = {} if prof is None else prof.stages()
     info = SolveInfo(flops=flop_model(n, nvec, mode in ("A", "X", "S")),
                      elapsed=elapsed, n=n, nvec=nvec, mode=mode,
-                     stages=stages)
+                     **profiled(prof))
     return w, z, info
+
+
+def profiled(prof: Optional[Profiler]) -> dict:
+    """SolveInfo's stages, spans and counters from the solve's profiler
+    (empty without one)."""
+    if prof is None:
+        return {}
+    return {"stages": prof.stages(), "spans": prof.spans(),
+            "counters": prof.read_counters()}
 
 
 def eigen_s(a, nvec: Optional[int] = None, mode: str = "A",
             ctx: Optional[EigenContext] = None, stage_data=None,
-            profile: bool = False
+            profile=False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor], SolveInfo]:
     """Standard real-symmetric eigensolver (reference: src/eigen_s.F:30).
 
@@ -292,14 +306,17 @@ def eigen_s(a, nvec: Optional[int] = None, mode: str = "A",
     ``utils.stageio.save_stage_data`` or a (d, e) tuple), on the context's
     device; ``a`` may be None, and Z is then float64.  profile=True fills
     SolveInfo.stages with the TRD-BLK / D&C (BISECT) / TRDBAK split
-    (reference: src/eigen_s.F:180-276).
+    (reference: src/eigen_s.F:180-276) and SolveInfo.spans with the spans
+    of ``utils/profiler.py``; ``profile`` may also be a ``Profiler``, which
+    the solve then uses (``Profiler(annotate=True)`` adds the
+    ``torch.profiler`` ranges and the D&C's counters).
     """
     return _drive(a, nvec, mode, ctx, stage_data, profile, band=1)
 
 
 def eigen_sx(a, nvec: Optional[int] = None, mode: str = "A",
              ctx: Optional[EigenContext] = None, stage_data=None,
-             profile: bool = False
+             profile=False
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor], SolveInfo]:
     """One-stage banded variant (reference: src/eigen_sx.F:30): dense →
     pentadiagonal by two-column Householder pairs (PRD-BLK) → banded D&C

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from eigenexa_tpu_torch.ops.householder import apply_wy_left, wy_t_factor
+from eigenexa_tpu_torch.utils.profiler import span
 
 
 def back_transform(z: torch.Tensor, v: torch.Tensor, tau: torch.Tensor,
@@ -34,7 +35,8 @@ def back_transform(z: torch.Tensor, v: torch.Tensor, tau: torch.Tensor,
     # makes the last sub-diagonal real, so the coverage is kept
     for k in reversed(range(0, max(n - 1, 0), nb)):
         b = min(nb, n - 1 - k)
-        vb = v[k:, k:k + b]          # rows < k+1 are structurally zero
-        t = wy_t_factor(vb, tau[k:k + b])
-        apply_wy_left(z[k:, :], vb, t)
+        with span("trbak.block"):
+            vb = v[k:, k:k + b]          # rows < k+1 are structurally zero
+            t = wy_t_factor(vb, tau[k:k + b])
+            apply_wy_left(z[k:, :], vb, t)
     return z

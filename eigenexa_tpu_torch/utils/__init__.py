@@ -1,5 +1,6 @@
-"""Device barrier and stage timer (counterpart of ``eigenexa_tpu/utils``)."""
+"""Device barrier, stage timer and spans (counterpart of
+``eigenexa_tpu/utils``)."""
 
-from eigenexa_tpu_torch.utils.profiler import Profiler, profile_region
+from eigenexa_tpu_torch.utils.profiler import Profiler, count, span
 
-__all__ = ["Profiler", "profile_region"]
+__all__ = ["Profiler", "count", "span"]

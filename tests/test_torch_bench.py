@@ -23,9 +23,8 @@ from eigenexa_tpu_torch.bench import runner  # noqa: E402
 from eigenexa_tpu_torch.bench.runner import (BenchCase, main,  # noqa: E402
                                              run_case, run_input_file)
 from eigenexa_tpu_torch.testing import CheckResult  # noqa: E402
-from eigenexa_tpu_torch.utils.profiler import (Profiler,  # noqa: E402
-                                               global_profiler,
-                                               profile_region)
+from eigenexa_tpu_torch.utils import profiler  # noqa: E402
+from eigenexa_tpu_torch.utils.profiler import Profiler  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -191,16 +190,25 @@ def test_profiler_report_counts_and_global_region():
     off = Profiler(enabled=False)
     with off.region("x", device=CPU):
         pass
-    assert off.times == {} and off.counts == {}
-    # the module's profiler times nothing until enable_global()
-    with profile_region("global", device=CPU):
+    assert off.times == {} and off.counts == {} and off.records == []
+    # spans report to the active profiler alone, and only while it is
+    # active; a region opens a span of its own name
+    with profiler.span("outside"):
         pass
-    assert not global_profiler().enabled
-    assert global_profiler().times == {}
+    with profiler.active(p):
+        with p.region("c", device=CPU):
+            with profiler.span("inside"):
+                pass
+    with profiler.span("outside"):
+        pass
+    assert list(p.spans()) == ["c", "inside"]
+    assert [r[:2] for r in p.records] == [["c", -1], ["inside", 0]]
+    assert p.spans()["inside"]["count"] == 1
+    assert p.spans()["c"]["self_s"] <= p.spans()["c"]["host_s"]
+    assert profiler._ACTIVE is None
     # every region names its device, so none on a card goes unsynced
-    for region in (p.region, profile_region):
-        with pytest.raises(TypeError, match="device"):
-            region("a")
+    with pytest.raises(TypeError, match="device"):
+        p.region("a")
 
 
 REFUSAL = ("cusolver error: CUSOLVER_STATUS_INVALID_VALUE, when calling "

@@ -752,6 +752,26 @@ def test_chip_smoke_f64_phase_passes_on_the_cpu(monkeypatch):
     assert rolled == zeros and windowed == zeros
 
 
+def test_chip_smoke_trd_profile_reads_the_spans_on_the_cpu(monkeypatch,
+                                                           capsys):
+    """``--trd-profile`` at Frank n = 150 on the CPU: a line for each
+    driver and reduction, with the span counts of the program's own
+    ``trd.column`` / ``prd.pair`` spans and no kernel (CPU tensors launch
+    none)."""
+    monkeypatch.syspath_prepend(str(REPO))
+    cs = _chip_smoke()
+    cs.trd_profile(torch.device("cpu"), 150)
+    heads = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("trd-profile: eigen")]
+    assert [line.split()[1:3] for line in heads] == [
+        ["eigen_s", "rolled"], ["eigen_s", "windowed"],
+        ["eigen_sx", "rolled"], ["eigen_sx", "windowed"],
+        ["eigen_h", "rolled"]]
+    assert all("kernels 0.00 a" in line for line in heads)
+    assert [line.split("(")[-1].split()[0] for line in heads] == [
+        "150", "150", "76", "76", "150"]
+
+
 def test_chip_smoke_complex_kernel_phase_passes_on_the_cpu():
     """The card script's complex sub_matmul phase at small sizes on CPU
     tensors: every case, the first rolled panel in place on its strided
