@@ -10,7 +10,7 @@ result line:
 1. device   — a CUDA card is required (no CPU fallback);
 2. build    — builds the hand-written kernels from the checkout's sources
               (``csrc/sub_matmul.cu``, ``csrc/symv_lower.cu``,
-              ``csrc/sturm.cu``);
+              ``csrc/sturm.cu``, ``csrc/householder.cu``);
 3. kernels  — each kernel through its wrapper against its plain PyTorch
               version on the card, f32 and f64, one ``kernel`` line per
               case with the error and its bound, the kernel's and the plain
@@ -53,7 +53,11 @@ result line:
               130, the squares on either side of the complex launch rule,
               and its large case in one call (the larger-tile kernel)
               against row blocks small enough for the 64-tile kernel,
-              bitwise;
+              bitwise; then ``householder_vector`` on columns of 8192,
+              4096 and 64 (f64 and f32) and 8192 (c128) at pivot 1: v, τ
+              and β within 16 ULPs of the plain version, a rerun bitwise
+              equal, Hᴴx = β·e_p, its call and device times beside the
+              plain version's 27 ops;
 4. slice    — the rolled path: ``eigen_s(frank(8192, float32))`` cold, warm
               and with the stage split; checks residual, orthogonality, the
               scaled eigenvalue error, the kernel launch counts per solve
@@ -214,6 +218,12 @@ KERNELS = {
         "source": "eigenexa_tpu_torch/csrc/sturm.cu",
         "replaces": "eigenexa_tpu/ops/sturm.py:51 (lax.scan, not a TPU "
                     "kernel)"},
+    # no TPU kernel: the JAX package's reflector is jnp ops that XLA fuses
+    # inside each panel's program; eager PyTorch issued some 27 launches
+    "householder_vector": {
+        "source": "eigenexa_tpu_torch/csrc/householder.cu",
+        "replaces": "eigenexa_tpu/ops/householder.py:63 (jnp ops, not a "
+                    "TPU kernel)"},
 }
 # error bound factor per dtype: only the summation order differs
 ERR_C = {"float32": 1e-5, "float64": 1e-13, "complex64": 1e-5,
@@ -257,6 +267,23 @@ def expected_launches(n: int, nb_f: int = NB_F, nb_b: int = NB_B) -> int:
     return _full_panels(n, nb_f) + -(-(n - 1) // nb_b)
 
 
+def reflectors(n: int) -> int:
+    """householder_vector launches of one tridiagonal reduction of n, real
+    or complex, rolled or windowed: one a column whose pivot lies inside
+    the matrix, n − 1 (the last column's lies past it)."""
+    return max(n - 1, 0)
+
+
+def reflectors_sx(n: int, nb_f: int = NB_F) -> int:
+    """householder_vector launches of one band-2 reduction of n: two a
+    reflector pair of every full panel, and in the remainder (its m rows
+    padded to an even m + 2 or m + 3) two a pair but the last, whose
+    pivots lie past the padded block (``ops/band.py``)."""
+    panels = _sx_panels(n, nb_f)
+    rest = n - panels * nb_f
+    return panels * nb_f + rest + rest % 2
+
+
 def _full_panels(n: int, nb_f: int) -> int:
     """Panels of the reduction that are followed by a trailing update."""
     return -(-(n - nb_f) // nb_f) if n > nb_f else 0
@@ -266,10 +293,19 @@ def expected_launches_windowed(n: int, nb_f: int = NB_F,
                                nb_b: int = NB_B) -> dict:
     """Launches of one eigen_s solve through the windowed reduction: one
     symv_lower per column of every full panel, one rank2k_update_window
-    per full panel, one sub_matmul per WY block of the back-transform."""
+    per full panel, one sub_matmul per WY block of the back-transform, and
+    the reduction's reflectors."""
     panels = _full_panels(n, nb_f)
     return _want(symv_lower=panels * nb_f, rank2k_update_window=panels,
-                 sub_matmul=-(-(n - 1) // nb_b))
+                 sub_matmul=-(-(n - 1) // nb_b),
+                 householder_vector=reflectors(n))
+
+
+def expected_launches_rolled(n: int) -> dict:
+    """Launches of one rolled eigen_s (or eigen_h) solve: sub_matmul and
+    the reduction's reflectors."""
+    return _want(sub_matmul=expected_launches(n),
+                 householder_vector=reflectors(n))
 
 
 def _sx_panels(n: int, nb_f: int = NB_F) -> int:
@@ -283,13 +319,16 @@ def expected_launches_sx(n: int, windowed: bool, trbak: bool = True,
     """Launches of one eigen_sx solve: rolled, one sub_matmul a panel;
     windowed, one symv_lower (nc = 2) a reflector pair and one
     rank2k_update_window a panel; one sub_matmul a WY block of the
-    back-transform where the mode runs it."""
+    back-transform where the mode runs it; either way the reduction's
+    reflectors."""
     panels = _sx_panels(n, nb_f)
     back = -(-(n - 1) // nb_b) if trbak else 0
     if windowed:
         return _want(symv_lower=panels * nb_f // 2,
-                     rank2k_update_window=panels, sub_matmul=back)
-    return _want(sub_matmul=panels + back)
+                     rank2k_update_window=panels, sub_matmul=back,
+                     householder_vector=reflectors_sx(n, nb_f))
+    return _want(sub_matmul=panels + back,
+                 householder_vector=reflectors_sx(n, nb_f))
 
 
 def sx_last_t0(n: int, nb_f: int = NB_F) -> int:
@@ -677,6 +716,93 @@ def _kernel_case(device, gen, dtype, timed: bool, label: str, m: int,
     return _report(row, err <= bound and outside_ok,
                    f"disagrees with its plain version (outside view "
                    f"untouched: {outside_ok})")
+
+
+# the reflector's rows: (m, dtype), the rolled column's length at the
+# first panel of n = 8192, at mid-reduction and at the last panels; c128 at
+# n = 8192 (eigen_h's first column)
+REFLECTOR_CASES = ((8192, "float64"), (4096, "float64"), (64, "float64"),
+                   (8192, "float32"), (4096, "float32"), (64, "float32"),
+                   (8192, "complex128"))
+# ULPs between the kernel and its plain version: the two sums of squares
+# run in other orders on the two sides
+REFLECTOR_ULPS = 16
+
+
+def _ulps(got, ref) -> float:
+    """The largest |got − ref| / (ε·|ref|) over the entries (ε of ref's
+    type), NaN and infinities matched exactly."""
+    import torch
+
+    eps = torch.finfo(ref.dtype).eps
+    got = got.reshape(-1).to(torch.complex128)
+    ref = ref.reshape(-1).to(torch.complex128)
+    same = (got == ref) | (got.isnan() & ref.isnan())
+    got, ref = got[~same], ref[~same]
+    if not (bool(got.isfinite().all()) and bool(ref.isfinite().all())):
+        return float("inf")
+    if not ref.numel():
+        return 0.0
+    return float(((got - ref).abs() / ref.abs()).max()) / eps
+
+
+def reflector_phase(device, timed: bool, cases=REFLECTOR_CASES):
+    """``householder_vector`` against its plain version on the card at the
+    pivot p = 1 of a random column of each length: v, τ and β within
+    REFLECTOR_ULPS units in the last place, a rerun bitwise equal, Hᴴx =
+    β·e_p within (m + 4)·ε·‖x[p:]‖, and one launch a call.  If `timed`,
+    the call with its host side (``ms``), the card's time of a call
+    (``device_ms``), the plain version's two times, and the bound: x read
+    and v written once at the memory rate.  No library call computes the
+    reflector.  Returns one row per case."""
+    import torch
+    from eigenexa_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=device).manual_seed(1818)
+    rows, p = [], 1
+    for m, name in cases:
+        dtype = getattr(torch, name)
+        x = torch.randn(m, generator=gen, dtype=dtype, device=device)
+        before = kernels.LAUNCHES["householder_vector"]
+        got = kernels.householder_vector(x, p)
+        again = kernels.householder_vector(x, p)
+        _sync(device)
+        launched = kernels.LAUNCHES["householder_vector"] - before
+        ref = kernels._householder_vector_ref(x, p)
+        same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
+        v, tau, beta = got
+        wide = torch.complex128 if x.is_complex() else torch.float64
+        xd, vd, td = x.to(wide), v.to(wide), tau.to(wide)
+        image = xd - td.conj() * vd * torch.vdot(vd, xd)
+        want = xd.clone()
+        want[p] = beta.to(torch.float64)
+        want[p + 1:] = 0
+        identity = float((image - want).abs().max()) / (
+            torch.finfo(dtype).eps * float(torch.linalg.vector_norm(xd[p:])))
+        row = {"name": "householder_vector", "case": f"m{m}", "dtype": name,
+               "m": m, "p": p,
+               "max_abs_err": max(float((g.to(wide) - r.to(wide)).abs().max())
+                                  for g, r in zip(got, ref)),
+               "bound": REFLECTOR_ULPS * torch.finfo(dtype).eps * max(
+                   float(r.abs().max()) for r in ref),
+               "max_ulps": max(_ulps(g, r) for g, r in zip(got, ref)),
+               "bound_ulps": REFLECTOR_ULPS, "rerun_bitwise_equal": same,
+               "identity": identity, "identity_bound": m + 4,
+               "launches": launched}
+        if timed:
+            _times(row, lambda: kernels.householder_vector(x, p),
+                   lambda: kernels._householder_vector_ref(x, p), None,
+                   device)
+            row["plain_device_ms"] = _device_ms(
+                lambda: kernels._householder_vector_ref(x, p), device)
+            row.update(_bound(name, 2 * m + 2, 6.0 * m))
+        rows.append(_report(
+            row, row["max_ulps"] <= REFLECTOR_ULPS and same
+            and identity <= m + 4
+            and launched == (2 if device.type == "cuda" else 0),
+            "disagrees with its plain version, or a rerun or the launch "
+            "count differs"))
+    return rows
 
 
 def same_bits_phase(device, big: int = BIG, block: int = 384):
@@ -1100,7 +1226,7 @@ def slice_phase(device, n: int):
 
     a = frank(n, torch.float32, device)
     w_true = frank_spectrum(n, torch.float64)
-    want = _want(sub_matmul=expected_launches(n))
+    want = expected_launches_rolled(n)
     counts = []
     _reset_launches(kernels)
     w1, z1, cold = eigen_s(a)
@@ -1163,7 +1289,7 @@ def f64_phase(device, n: int):
 
     a = frank(n, torch.float64, device)
     w_true = frank_spectrum(n, torch.float64, device)
-    want = _want(sub_matmul=expected_launches(n))
+    want = expected_launches_rolled(n)
     want_win = expected_launches_windowed(n)
     _reset_launches(kernels)
     w1, z1, cold = eigen_s(a)
@@ -1350,15 +1476,16 @@ def modes_phase(device, n: int = N_F64):
     w_true = frank_spectrum(n, torch.float64, device)
     sturm_path = _want()
     drivers = (("eigen_s", eigen_s, expected_launches(n),
-                _full_panels(n, NB_F)),
+                _full_panels(n, NB_F), reflectors(n)),
                ("eigen_sx", eigen_sx,
                 expected_launches_sx(n, False)["sub_matmul"],
-                _sx_panels(n)))
-    for name, drive, full, no_back in drivers:
+                _sx_panels(n), reflectors_sx(n)))
+    for name, drive, full, no_back, refl in drivers:
         w_a = None
         for mode in "ANX":
             want = _want(sub_matmul=no_back if mode == "N" else full,
-                         sturm_bisect=int(mode in "NX"))
+                         sturm_bisect=int(mode in "NX"),
+                         householder_vector=refl)
             _reset_launches(kernels)
             w, z, info = drive(a, mode=mode, profile=True)
             counts = _take_launches(kernels)
@@ -1473,7 +1600,7 @@ def hermitian_phase(device, n: int = N_SLICE, n_modes: int = N_MODES_H):
     from eigenexa_tpu_torch.testing import frank_hermitian, frank_spectrum
 
     w_true = frank_spectrum(n, torch.float64, device)
-    want = _want(sub_matmul=expected_launches(n))
+    want = expected_launches_rolled(n)
     launches = {}
     for dtype in (torch.complex64, torch.complex128):
         name = _name(dtype)
@@ -1542,7 +1669,8 @@ def _hermitian_modes(device, n: int) -> None:
         _reset_launches(kernels)
         w, z, info = eigen_h(a, mode=mode)
         counts = _take_launches(kernels)
-        want = _want(sub_matmul=full if mode in "AXS" else panels)
+        want = _want(sub_matmul=full if mode in "AXS" else panels,
+                     householder_vector=reflectors(n))
         label = f"hermitian modes {mode}"
         if mode == "A":
             _check_hermitian(label, a, w, z, w_true, strict=True)
@@ -1597,7 +1725,8 @@ def gev_phase(device, n: int = N_F64):
     a = frank(n, torch.float64, device)
     b = designed(torch.linspace(1.0, 2.0, n, dtype=torch.float64), seed=0,
                  device=device)
-    want = _want(sub_matmul=2 * expected_launches(n))
+    want = _want(sub_matmul=2 * expected_launches(n),
+                 householder_vector=2 * reflectors(n))
     _reset_launches(kernels)
     w1, z1, cold = eigen_gev(a, b)
     counts = [_take_launches(kernels)]
@@ -1620,7 +1749,7 @@ def gev_phase(device, n: int = N_F64):
         raise AssertionError("gev mode A failed")
     del z2
     want_n = _want(sub_matmul=expected_launches(n) + _full_panels(n, NB_F),
-                   sturm_bisect=1)
+                   sturm_bisect=1, householder_vector=2 * reflectors(n))
     _reset_launches(kernels)
     w_n, z_n, info_n = eigen_gev(a, b, mode="N")
     counts_n = _take_launches(kernels)
@@ -1678,8 +1807,9 @@ def dist_launches(driver: str, n: int, mode: str, shape, rank: int) -> dict:
     the rolled single-device eigen_s on problems r, r + P, …; modes N and
     X launch ``sturm_bisect`` once."""
     if driver == "ind":
-        return _want(sub_matmul=expected_launches(n) * len(
-            range(rank, K_DIST, shape[0] * shape[1])))
+        solves = len(range(rank, K_DIST, shape[0] * shape[1]))
+        return _want(sub_matmul=expected_launches(n) * solves,
+                     householder_vector=reflectors(n) * solves)
     one = expected_dist_launches(n, shape)
     if driver == "gev":
         return _want(sub_matmul=one + expected_dist_launches(
@@ -1967,7 +2097,7 @@ def entry_phase(device) -> dict:
     _reset_launches(kernels)
     w, z = fn(*args)
     counts = _take_launches(kernels)
-    want = _want(sub_matmul=expected_launches(N_ENTRY))
+    want = expected_launches_rolled(N_ENTRY)
     print(f"entry: launches {_nonzero(counts)} (expected {_nonzero(want)})",
           flush=True)
     _check_solution("entry", args[0], w, z,
@@ -2140,7 +2270,7 @@ def large_phase(device, n: int = N_LARGE, eigh_sizes=(N_WINDOWED, N_LARGE)):
 
     def want_s(impl):
         return (expected_launches_windowed(n) if impl == "windowed"
-                else _want(sub_matmul=expected_launches(n)))
+                else expected_launches_rolled(n))
 
     w1, z1, impl_s, counts_s = _solve_large(device, eigen_s, a,
                                             f"eigen_s n={n} f32", want_s)
@@ -2337,7 +2467,8 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
                   bench_launches: dict, dist_launches: dict) -> dict:
     """One entry per kernel at its shape on the f32 windowed path, with an
     ``f64`` object of the same kernel at its shape on the f64 windowed
-    path, and for ``sub_matmul`` ``c64`` and ``c128`` objects at the
+    path (``householder_vector``: a column of 8192, with a ``c128``
+    object), and for ``sub_matmul`` ``c64`` and ``c128`` objects at the
     Hermitian path's first rolled panel with their launches in one eigen_h
     solve (`complex_launches`) and an ``n32768`` object at the n = 32768
     path's two f32 shapes with the launches of that eigen_s solve
@@ -2353,7 +2484,8 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
                  "symv_lower": ("fused_first_column",
                                 "fused_f64_path_first_column"),
                  "rank2k_update_window": ("first_panel",
-                                          "f64_path_first_panel")}
+                                          "f64_path_first_panel"),
+                 "householder_vector": ("m8192", "m8192")}
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")
     f64_keys = ("ms", "device_ms", "bound_ms", "library_ms",
@@ -2375,6 +2507,10 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
                  "f64": {k: row64[k] for k in f64_keys},
                  "bench_launches": bench_launches[name],
                  "dist_launches": dist}
+        if name == "householder_vector":
+            crow = next(r for r in rows if r["name"] == name
+                        and r["dtype"] == "complex128")
+            entry["c128"] = {k: crow[k] for k in f64_keys}
         if name == "sub_matmul":
             entry["dist_block"] = {
                 r["dtype"]: {**{k: r[k] for k in keys},
@@ -2476,7 +2612,9 @@ def _drive(device, gpu: str, host) -> int:
               ("rank2k_update_window", "rank2k_update_window",
                rank2k_window_phase, (N_WINDOWED, True)),
               ("sturm_bisect", "sturm_bisect", sturm_phase,
-               (N_STURM, N_F64, True, 32, host)))
+               (N_STURM, N_F64, True, 32, host)),
+              ("householder_vector", "householder_vector", reflector_phase,
+               (True,)))
     rows = []
     for label, kernel, phase, args in phases:
         if kernel in names:
@@ -2521,7 +2659,9 @@ def _drive(device, gpu: str, host) -> int:
                     for path in (windowed, windowed64, sx_windowed))
             and modes["sturm_bisect"] > 0 and gev_n["sturm_bisect"] > 0
             and bench["sturm_bisect"] > 0
-            and dist["sx N gloo_2x2"]["sturm_bisect"] > 0):
+            and dist["sx N gloo_2x2"]["sturm_bisect"] > 0
+            and all(counts["householder_vector"] > 0 for path, counts in paths
+                    if not path.startswith("dist "))):
         raise AssertionError("a kernel of a main path was never launched")
 
     print(json.dumps(_kernels_line(rows, {**windowed, "sturm_bisect":

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
-_SOURCES = ("sub_matmul.cu", "symv_lower.cu", "sturm.cu")
+_SOURCES = ("sub_matmul.cu", "symv_lower.cu", "sturm.cu", "householder.cu")
 _LIB_NAME = "libeigenexa_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -45,12 +45,17 @@ _ARGTYPES = {
                             _P, _LD, _I, _I, _P],
     # (n, band, s0, s1, s2, head, a0, b0, w0, n_iter, w, stream)
     "eigenexa_sturm_bisect": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    # (m, p, x, v, tau, beta, stream)
+    "eigenexa_householder_vector": [_I, _I, _P, _P, _P, _P, _P],
 }
 # the dtypes each entry point is built for (the suffix of its name): f32 and
 # f64, but the Sturm recurrence, which is f64 only, and the whole-matrix
-# subtract-product, which also takes c64 and c128 (the Hermitian path)
+# subtract-product and the reflector, which also take c64 and c128 (the
+# Hermitian path)
 _SUFFIXES = {"eigenexa_sturm_bisect": ("_f64",),
-             "eigenexa_sub_matmul": ("_f32", "_f64", "_c64", "_c128")}
+             "eigenexa_sub_matmul": ("_f32", "_f64", "_c64", "_c128"),
+             "eigenexa_householder_vector": ("_f32", "_f64", "_c64",
+                                             "_c128")}
 
 
 def entry_points():

@@ -42,8 +42,8 @@ from typing import NamedTuple
 import torch
 
 from eigenexa_tpu_torch.ops import householder as hh
-from eigenexa_tpu_torch.ops.householder import householder_vector
-from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
+from eigenexa_tpu_torch.ops.kernels import (WIN_TM, householder_vector,
+                                            rank2k_update,
                                             rank2k_update_window, symv_lower,
                                             symv_workspace)
 from eigenexa_tpu_torch.utils.profiler import span

@@ -24,6 +24,9 @@ The JAX package's scan bucketing, up-left roll, per-group jit, donation
 decorators and the padding of n to a multiple of TM exist only for XLA and
 the Pallas grid and are not ported.
 
+Both take each column's reflector from ``kernels.householder_vector``
+(one launch of ``csrc/householder.cu`` on the card).
+
 The panel recurrence reads the trailing block as it stood at panel start
 and corrects each column with the in-panel U and W; the in-place update
 therefore runs strictly after the panel's last column (one stream, so call
@@ -42,7 +45,8 @@ from typing import NamedTuple
 
 import torch
 
-from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
+from eigenexa_tpu_torch.ops.kernels import (WIN_TM, householder_vector,
+                                            rank2k_update,
                                             rank2k_update_window, symv_lower,
                                             symv_workspace, wy_apply)
 from eigenexa_tpu_torch.utils.profiler import span
@@ -77,52 +81,6 @@ class TridiagResult(NamedTuple):
                         #        reflector zeroing A[k+2:, k] (rows <= k are
                         #        0, row k+1 is 1)
     tau: torch.Tensor   # (n,) reflector scales (tau[k]=0 -> identity)
-
-
-def householder_vector(x: torch.Tensor, p: int):
-    """dlarfg/zlarfg analogue: the reflector (v, tau, beta) that maps x[p:]
-    onto beta·e_p, annihilating x[p+1:] below the pivot alpha = x[p].
-
-    The JAX function takes the mask ``idx > j``; here the pivot is the
-    Python int p = j + 1, so the tail is a slice instead of a mask.  Returns
-    v (v[p] = 1, zero above p), tau (0 when there is nothing to do) and
-    beta, the resulting sub-diagonal value, which is real: for complex x
-    the zlarfg convention rotates the pivot's phase into the reflector, and
-    the reflector is active when the tail is nonzero or alpha is not real
-    (so an empty tail still yields the phase rotation of the last
-    sub-diagonal).  The tail is pre-scaled by its max-abs before the norm
-    (dlarfg's rescaling), so ‖x‖² cannot overflow or underflow in f32.
-    """
-    m = x.shape[0]
-    v = torch.zeros_like(x)
-    zero = x.new_zeros(())
-    rzero = x.real.new_zeros(())
-    if p >= m:
-        return v, zero, rzero
-    alpha = x[p]
-    tail = x[p + 1:]
-    tiny = torch.finfo(x.dtype).tiny
-    if tail.numel():
-        scale = torch.clamp_min(tail.abs().amax(), tiny)
-        xnorm = torch.linalg.vector_norm(tail / scale) * scale
-    else:
-        xnorm = rzero
-    if x.is_complex():
-        alphr, alphi = alpha.real, alpha.imag
-        mag = torch.sqrt(alphr * alphr + alphi * alphi + xnorm * xnorm)
-        active = (xnorm > 0) | (alphi != 0)
-    else:
-        alphr = alpha
-        mag = torch.sqrt(alpha * alpha + xnorm * xnorm)
-        active = xnorm > 0
-    beta = torch.where(alphr >= 0, -mag, mag)   # real, opposite sign of Re α
-    one = torch.ones_like(beta)
-    safe_beta = torch.where(active, beta, one)
-    tau = torch.where(active, (safe_beta - alpha) / safe_beta, zero)
-    denom = torch.where(active, alpha - safe_beta, one.to(x.dtype))
-    v[p + 1:] = tail / denom
-    v[p] = active.to(x.dtype)
-    return v, tau, torch.where(active, beta, alphr)
 
 
 def _panel_body(j: int, b, u_p, w_p, tau_p, e_p):

@@ -1,9 +1,10 @@
 """The port's kernel wrappers: ``sub_matmul``, ``symv_lower``,
-``rank2k_update_window`` and ``sturm_bisect``.
+``rank2k_update_window``, ``sturm_bisect`` and ``householder_vector``.
 
 Counterpart of ``eigenexa_tpu/ops/pallas_kernels.py``.  Each kernel is
 hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
-``symv_lower.cu``, ``sturm.cu``), built by ``ops/_build.py``:
+``symv_lower.cu``, ``sturm.cu``, ``householder.cu``), built by
+``ops/_build.py``:
 
 * ``sub_matmul`` (with ``rank2k_update`` and ``wy_apply``): the fused
   subtract-matmul ``OUT = B − P·Qᴴ`` of the rolled reduction's trailing
@@ -22,7 +23,10 @@ hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
   next L bisection steps at once, which gives bisection's bits.  It is no
   TPU kernel's port: the JAX package runs the recurrence as a ``lax.scan``
   inside ``lax.fori_loop`` (``eigenexa_tpu/ops/sturm.py``), which eager
-  PyTorch on the card could only issue launch by launch.
+  PyTorch on the card could only issue launch by launch;
+* ``householder_vector``: the reflector of one column (dlarfg, zlarfg) in
+  one launch, where its jnp form, which XLA fuses inside the panel's
+  program, is some 27 eager ops.  No TPU kernel's port either.
 
 ``WIN_TM`` is the window granularity TM: a window starts at row and column
 ``t0·TM``.  It says nothing about the kernels' own tiles, and a matrix edge
@@ -31,17 +35,17 @@ need not be a multiple of it.
 Dispatch is by device, never by a fallback:
 
 * a CPU tensor takes the plain version (``_sub_matmul_ref``,
-  ``_symv_lower_ref``, ``_rank2k_window_ref``, ``_sturm_bisect_ref``); the
-  parity tests and the CPU solver run it;
+  ``_symv_lower_ref``, ``_rank2k_window_ref``, ``_sturm_bisect_ref``,
+  ``_householder_vector_ref``); the parity tests and the CPU solver run it;
 * a CUDA tensor launches the kernel, or raises on what the kernel does not
-  take (other dtypes, complex but for ``sub_matmul``, non-unit column
-  stride, bad aliasing, more than ``SYMV_MAX_NC`` vectors, a window that
-  starts past the matrix).
+  take (other dtypes, complex but for ``sub_matmul`` and
+  ``householder_vector``, non-unit column stride, bad aliasing, more than
+  ``SYMV_MAX_NC`` vectors, a window that starts past the matrix).
 
 ``sub_matmul`` takes f32, f64, c64 and c128 (``rank2k_update`` and
-``wy_apply`` with it: their formulas carry the conjugates).  The windowed
-kernels are real only, as the JAX package's windowed path is: a Hermitian
-reduction is always rolled.
+``wy_apply`` with it: their formulas carry the conjugates), and so does
+``householder_vector``.  The windowed kernels are real only, as the JAX
+package's windowed path is: a Hermitian reduction is always rolled.
 
 ``LAUNCHES`` counts wrapper calls that launched their kernel (the main
 path's proof that it ran through the kernels); a plain version never
@@ -55,7 +59,7 @@ import torch
 from eigenexa_tpu_torch.ops._build import load_library
 
 LAUNCHES = {"sub_matmul": 0, "symv_lower": 0, "rank2k_update_window": 0,
-            "sturm_bisect": 0}
+            "sturm_bisect": 0, "householder_vector": 0}
 
 WIN_TM = 512       # window granularity TM of the windowed reduction
 SYMV_MAX_NC = 8    # most vectors one symv_lower call takes
@@ -185,6 +189,97 @@ def wy_apply(z, v, t, out=None):
     s = v.conj().T @ z
     y = t @ s
     return sub_matmul(z, v, y.mH.resolve_conj().contiguous(), out=out)
+
+
+# ---------------------------------------------------------------------------
+# the column's Householder reflector
+# ---------------------------------------------------------------------------
+
+def _householder_vector_ref(x: torch.Tensor, p: int):
+    """Plain PyTorch version of :func:`householder_vector`, op by op."""
+    m = x.shape[0]
+    v = torch.zeros_like(x)
+    zero = x.new_zeros(())
+    rzero = x.real.new_zeros(())
+    if p >= m:
+        return v, zero, rzero
+    alpha = x[p]
+    tail = x[p + 1:]
+    tiny = torch.finfo(x.dtype).tiny
+    if tail.numel():
+        scale = torch.clamp_min(tail.abs().amax(), tiny)
+        xnorm = torch.linalg.vector_norm(tail / scale) * scale
+    else:
+        xnorm = rzero
+    if x.is_complex():
+        alphr, alphi = alpha.real, alpha.imag
+        mag = torch.sqrt(alphr * alphr + alphi * alphi + xnorm * xnorm)
+        active = (xnorm > 0) | (alphi != 0)
+    else:
+        alphr = alpha
+        mag = torch.sqrt(alpha * alpha + xnorm * xnorm)
+        active = xnorm > 0
+    beta = torch.where(alphr >= 0, -mag, mag)   # real, opposite sign of Re α
+    one = torch.ones_like(beta)
+    safe_beta = torch.where(active, beta, one)
+    tau = torch.where(active, (safe_beta - alpha) / safe_beta, zero)
+    denom = torch.where(active, alpha - safe_beta, one.to(x.dtype))
+    v[p + 1:] = tail / denom
+    v[p] = active.to(x.dtype)
+    return v, tau, torch.where(active, beta, alphr)
+
+
+def householder_vector(x: torch.Tensor, p: int):
+    """dlarfg/zlarfg analogue: the reflector (v, tau, beta) that maps x[p:]
+    onto beta·e_p, annihilating x[p+1:] below the pivot alpha = x[p].
+
+    The JAX function takes the mask ``idx > j``; here the pivot is the
+    Python int p = j + 1, so the tail is a slice instead of a mask.  Returns
+    v (v[p] = 1, zero above p), tau (0 when there is nothing to do) and
+    beta, the resulting sub-diagonal value, which is real: for complex x
+    the zlarfg convention rotates the pivot's phase into the reflector, and
+    the reflector is active when the tail is nonzero or alpha is not real
+    (so an empty tail still yields the phase rotation of the last
+    sub-diagonal).  The tail is pre-scaled by its max-abs before the norm
+    (dlarfg's rescaling), so ‖x‖² cannot overflow or underflow in f32.
+    tau and beta are 0-d tensors on x's device.
+
+    x: (m,), f32, f64, c64 or c128.  A CPU tensor, and a pivot past the end
+    (p ≥ m: no reflector, nothing launched), take the plain version; a CUDA
+    tensor launches ``csrc/householder.cu`` once, which agrees with the
+    plain version to rounding (its two sums run in another, fixed, order),
+    or raises on a non-unit stride or another dtype.
+    """
+    m = x.shape[0]
+    if p >= m or x.device.type == "cpu":
+        return _householder_vector_ref(x, p)
+    _check_kernel_dtype("householder_vector", x, complex_ok=True)
+    if x.ndim != 1 or p < 0:
+        raise ValueError(f"householder_vector: x{tuple(x.shape)} and p = {p} "
+                         "are not a vector and a pivot inside it")
+    if m > 1 and x.stride(0) != 1:
+        raise ValueError("householder_vector: x needs unit stride, got "
+                         f"{x.stride(0)}")
+    if x.is_conj():
+        # the kernel reads the stored values: a lazy conjugate is not there
+        raise ValueError("householder_vector: x carries a lazy conjugate; "
+                         "pass it through resolve_conj()")
+    v = torch.empty((m,), dtype=x.dtype, device=x.device)
+    tau = torch.empty((), dtype=x.dtype, device=x.device)
+    beta = torch.empty((), dtype=x.dtype.to_real(), device=x.device)
+    fn = getattr(load_library(),
+                 "eigenexa_householder_vector_" + _SUFFIX[x.dtype])
+    args = (m, p, x.data_ptr(), v.data_ptr(), tau.data_ptr(),
+            beta.data_ptr())
+    # the device guard is entered only where x's card is not current
+    if x.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "householder_vector")
+    LAUNCHES["householder_vector"] += 1
+    return v, tau, beta
 
 
 # ---------------------------------------------------------------------------

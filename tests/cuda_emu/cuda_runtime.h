@@ -4,11 +4,12 @@
 // __syncthreads() is a barrier, __shared__ a static array, and dynamic
 // shared memory one buffer filled with NaN bytes at the start of every
 // block.  Enough of the runtime for csrc/sub_matmul.cu,
-// csrc/symv_lower.cu and csrc/sturm.cu.  The tests rewrite `kernel<<<grid, threads, smem,
-// stream>>>(args)` into `emu_launch(kernel, grid, threads, args)`, the
-// inline PTX (the DMMA statement, the cp.async copies, commits and waits)
-// into calls of the `emu_` functions below, and `extern __shared__` into a
-// pointer to the dynamic buffer, before they compile.
+// csrc/symv_lower.cu, csrc/sturm.cu and csrc/householder.cu.  The tests
+// rewrite `kernel<<<grid, threads, smem, stream>>>(args)` into
+// `emu_launch(kernel, grid, threads, args)`, the inline PTX (the DMMA
+// statement, the cp.async copies, commits and waits) into calls of the
+// `emu_` functions below, and `extern __shared__` into a pointer to the
+// dynamic buffer, before they compile.
 //
 // The scheduler resumes the fibers of a block in an order shuffled on every
 // sweep, and a fiber runs until it waits at a barrier or ends: a barrier the
@@ -304,10 +305,12 @@ inline double __longlong_as_double(long long v) {
   return x;
 }
 
-// The f64 intrinsics that round once and are never contracted into an fma
-// (csrc/sturm.cu): plain operations of a host compiler that builds with
-// -std=c++20, which contracts nothing.
+// The f64 and f32 intrinsics that round once and are never contracted into
+// an fma (csrc/sturm.cu, csrc/householder.cu): plain operations of a host
+// compiler that builds with -std=c++20, which contracts nothing.
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __dsub_rn(double a, double b) { return a - b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }

@@ -330,8 +330,9 @@ def test_window_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 def test_windowed_eigen_s_on_the_card(cuda):
     """Frank n=1300 f32 through the windowed reduction: 20 full panels
     (1280 symv_lower, 20 rank2k_update_window launches; the window moves to
-    t0 = 1 and 2), a 20-column remainder, 11 WY blocks through sub_matmul.
-    n is no multiple of TM nor of the kernels' tiles."""
+    t0 = 1 and 2), a 20-column remainder, 11 WY blocks through sub_matmul,
+    and one householder_vector a column with a pivot inside the matrix,
+    n − 1.  n is no multiple of TM nor of the kernels' tiles."""
     from eigenexa_tpu_torch.ops import householder
 
     n = 1300
@@ -345,7 +346,8 @@ def test_windowed_eigen_s_on_the_card(cuda):
         w, z, _ = ext.eigen_s(a, ctx=ctx)
         assert tk.LAUNCHES == {"symv_lower": 1280,
                                "rank2k_update_window": 20, "sub_matmul": 11,
-                               "sturm_bisect": 0}
+                               "sturm_bisect": 0,
+                               "householder_vector": n - 1}
         w2, z2, _ = ext.eigen_s(a, ctx=ctx)
     finally:
         householder.TRD_IMPL = old
@@ -361,8 +363,8 @@ def test_windowed_eigen_s_on_the_card(cuda):
 def test_windowed_eigen_s_f64_on_the_card(cuda):
     """Frank n=1100 f64 through the windowed reduction: 17 full panels
     (1088 symv_lower, 17 rank2k_update_window launches; the window reaches
-    t0 = 2), 9 WY blocks; every f64 launch of the three kernels on one
-    solve.  Checks pass and a rerun is bitwise equal."""
+    t0 = 2), 9 WY blocks, n − 1 reflectors; every f64 launch of the four
+    kernels on one solve.  Checks pass and a rerun is bitwise equal."""
     from eigenexa_tpu_torch.ops import householder
     from eigenexa_tpu_torch.testing import eigenvalue_check, frank_spectrum
 
@@ -377,7 +379,8 @@ def test_windowed_eigen_s_f64_on_the_card(cuda):
         w, z, _ = ext.eigen_s(a, ctx=ctx)
         assert tk.LAUNCHES == {"symv_lower": 1088,
                                "rank2k_update_window": 17, "sub_matmul": 9,
-                               "sturm_bisect": 0}
+                               "sturm_bisect": 0,
+                               "householder_vector": n - 1}
         w2, z2, _ = ext.eigen_s(a, ctx=ctx)
     finally:
         householder.TRD_IMPL = old
@@ -392,16 +395,19 @@ def test_windowed_eigen_s_f64_on_the_card(cuda):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_eigen_s_on_the_card(cuda, dtype):
     """Frank n=300: 4 TRD panels with a trailing block and 3 WY blocks
-    launch the kernel 7 times; the solve passes the reference's checks,
-    repeats bitwise, and agrees with the CPU solve (plain versions) to
-    1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32 (the f32 reductions round in
-    another order)."""
+    launch sub_matmul 7 times, and the rolled reduction householder_vector
+    n − 1 times (the last column's pivot lies past the matrix); the solve
+    passes the reference's checks, repeats bitwise, and agrees with the
+    CPU solve (plain versions) to 1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32 (the
+    f32 reductions round in another order)."""
     n = 300
     ctx = ext.eigen_init(cuda)
     a = frank(n, dtype, cuda)
-    before = tk.LAUNCHES["sub_matmul"]
+    before = dict(tk.LAUNCHES)
     w, z, _ = ext.eigen_s(a, ctx=ctx)
-    assert tk.LAUNCHES["sub_matmul"] == before + 7
+    assert tk.LAUNCHES["sub_matmul"] == before["sub_matmul"] + 7
+    assert tk.LAUNCHES["householder_vector"] == (
+        before["householder_vector"] + n - 1)
     assert w.device.type == "cuda" and z.dtype == dtype
     assert residual_check(a, z, w).passed
     assert orthogonality_check(z).passed
@@ -423,9 +429,13 @@ def test_eigen_h_on_the_card(cuda, dtype):
 
     ctx = ext.eigen_init(cuda)
     a = frank_hermitian(300, dtype, device=cuda)
-    before = tk.LAUNCHES["sub_matmul"]
+    before = dict(tk.LAUNCHES)
     w, z, _ = ext.eigen_h(a, ctx=ctx)
-    assert tk.LAUNCHES["sub_matmul"] == before + 7
+    assert tk.LAUNCHES["sub_matmul"] == before["sub_matmul"] + 7
+    # the complex reduction: a reflector a column, the last sub-diagonal's
+    # phase rotation (an empty tail) included
+    assert tk.LAUNCHES["householder_vector"] == (
+        before["householder_vector"] + 299)
     assert z.device.type == "cuda" and z.dtype == dtype
     assert residual_check(a, z, w).passed
     assert orthogonality_check(z).passed
@@ -555,6 +565,101 @@ def test_sturm_bisect_raises_on_what_the_kernel_does_not_take(cuda):
         tk.sturm_bisect(d, e1.cpu(), None, *ends, 4)
 
 
+# ---------------------------------------------------------------------------
+# the column's reflector
+# ---------------------------------------------------------------------------
+
+# ULPs between the kernel and its plain version on the same card tensor:
+# the two sums of up to 32768 squares run in other orders (a few ε each, β
+# and every entry of v take half of the sum's through the square root)
+REFLECTOR_ULPS = 16
+
+
+def _hold_reflector(x, p, hold_v=True):
+    """One reflector through the kernel (one launch) against the plain
+    version on the same tensor: v (unless not `hold_v`), τ and β within
+    REFLECTOR_ULPS, NaN and infinities where the plain version has them, a
+    rerun bitwise equal, and Hᴴx = β·e_p within (m + 4)·ε·‖x[p:]‖ where
+    the plain version is finite (the scalars' own roundings are a few ε at
+    any m)."""
+    from _householder_cases import identity_error, ulps
+
+    before = tk.LAUNCHES["householder_vector"]
+    got = tk.householder_vector(x, p)
+    again = tk.householder_vector(x, p)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["householder_vector"] == before + 2
+    ref = tk._householder_vector_ref(x, p)
+    for i, (g, a, r) in enumerate(zip(got, again, ref)):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert g.device == x.device
+        assert g.cpu().numpy().tobytes() == a.cpu().numpy().tobytes()
+        if i or hold_v:
+            assert ulps(g.cpu().numpy(), r.cpu().numpy(),
+                        x.dtype) <= REFLECTOR_ULPS, (p, g, r)
+    if all(bool(torch.isfinite(r).all()) for r in ref):
+        assert identity_error(x, p, *got) <= x.shape[0] + 4
+
+
+@pytest.mark.parametrize("dtype", DTYPES + CDTYPES)
+@pytest.mark.parametrize("m", [1, 2, 3, 65, 1000, 8192, 32768])
+def test_householder_vector_matches_plain(cuda, dtype, m):
+    """The kernel against ``_householder_vector_ref`` at pivots 0, 1, m−2
+    and m−1; p = m takes the plain version's early return and launches
+    nothing."""
+    from _householder_cases import reflector_cases
+
+    cases = reflector_cases(dtype, ms=(m,))
+    cases = [c for c in cases if c[1] == m and c[0].startswith("m")]
+    for _, _, p, x in cases:
+        _hold_reflector(torch.as_tensor(x, dtype=dtype, device=cuda), p)
+    x = torch.as_tensor(cases[0][3], dtype=dtype, device=cuda)
+    before = tk.LAUNCHES["householder_vector"]
+    v, tau, beta = tk.householder_vector(x, m)
+    assert tk.LAUNCHES["householder_vector"] == before
+    assert not v.any() and float(tau.abs()) == 0 and float(beta) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES + CDTYPES)
+def test_householder_vector_edge_cases(cuda, dtype):
+    """A zero tail, α = 0, x = 0, a negative α, tails scaled by 1e∓300
+    (f64, c128) or 1e∓30 (f32, c64), where the pre-scale matters (at the
+    large scale sqrt(α² + ‖x‖²) overflows in both versions: τ NaN, β −∞;
+    there a complex v is left out, since torch's c64 division by the
+    infinite divisor α − β gives NaN where the kernel's scaled division
+    gives 0), and for complex types a complex α over a zero tail, where
+    only the phase rotation acts."""
+    from _householder_cases import reflector_cases
+
+    for label, _, p, x in reflector_cases(dtype, ms=()):
+        xt = torch.as_tensor(x, dtype=dtype, device=cuda)
+        _hold_reflector(xt, p, hold_v=not (label == "tail_large"
+                                           and dtype.is_complex))
+        v, tau, beta = tk.householder_vector(xt, p)
+        if label.startswith("phase"):
+            assert float(tau.abs()) > 0 and float(v[p].real) == 1
+            assert float(beta.abs()) == pytest.approx(abs(complex(x[p])),
+                                                      rel=1e-6)
+        if label in ("zero_tail", "alpha_0") and not dtype.is_complex:
+            assert (float(tau) == 0) == (label == "zero_tail")
+        if label == "tail_small":
+            assert float(tau.abs()) > 0
+
+
+def test_householder_vector_raises_on_what_the_kernel_does_not_take(cuda):
+    """A strided vector, an integer dtype and a 2-D tensor raise before
+    anything is launched."""
+    before = tk.LAUNCHES["householder_vector"]
+    x = _randn(76, 40, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="stride"):
+        tk.householder_vector(x[::2], 3)
+    with pytest.raises(TypeError, match="dtype"):
+        tk.householder_vector(torch.arange(40, device=cuda), 3)
+    with pytest.raises(ValueError):
+        tk.householder_vector(x.reshape(8, 5), 3)
+    assert tk.LAUNCHES["householder_vector"] == before
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_symv_lower_pair_into_a_reused_workspace(cuda, dtype):
     """The band-2 pair pass: nc = 2 into one workspace of its window group,
@@ -581,15 +686,18 @@ def test_symv_lower_pair_into_a_reused_workspace(cuda, dtype):
 def test_eigen_sx_on_the_card(cuda, impl, dtype):
     """Frank n = 512: 7 band-2 panels with a trailing update and 4 WY
     blocks; rolled, 11 sub_matmul launches; windowed, 224 symv_lower pair
-    calls (nc = 2), 7 rank2k_update_window and 4 sub_matmul.  The checks
-    pass, a rerun is bitwise equal, and the CPU solve agrees to
-    1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32."""
+    calls (nc = 2), 7 rank2k_update_window and 4 sub_matmul.  Either way
+    two householder_vector a reflector pair: 7 × 32 pairs, and 32 of the
+    remainder's 33 (its 64 rows padded to 66; the last pair's pivots lie
+    past them).  The checks pass, a rerun is bitwise equal, and the CPU
+    solve agrees to 1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32."""
     from eigenexa_tpu_torch.ops import householder
 
     n = 512
     want = ({"sub_matmul": 11, "symv_lower": 0, "rank2k_update_window": 0}
             if impl == "rolled" else
             {"sub_matmul": 4, "symv_lower": 224, "rank2k_update_window": 7})
+    want["householder_vector"] = 2 * (7 * 32 + 32)
     ctx = ext.eigen_init(cuda)
     a = frank(n, dtype, cuda)
     old = householder.TRD_IMPL

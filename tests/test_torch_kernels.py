@@ -138,7 +138,8 @@ def test_cpu_tensors_never_count_launches():
     tk.sturm_bisect(d, e, e[:-1], *ends, 3, check_valid=True, w0=d)
     assert tk.LAUNCHES == before
     assert set(before) == {"sub_matmul", "symv_lower",
-                           "rank2k_update_window", "sturm_bisect"}
+                           "rank2k_update_window", "sturm_bisect",
+                           "householder_vector"}
 
 
 def test_wrapper_rejects_bad_operands_and_unknown_devices():
@@ -179,11 +180,14 @@ def test_build_table_binds_every_entry_point():
             found[name] = [" ".join(p.split()) for p in params.split(",")]
     bound = dict(_build.entry_points())
     # f32 and f64 of the three matmul and matvec entry points, c64 and c128
-    # of the whole-matrix subtract-product; the Sturm recurrence is f64 only
-    assert set(found) == set(bound) and len(found) == 9
+    # of the whole-matrix subtract-product; the Sturm recurrence is f64 only;
+    # the reflector in all four types
+    assert set(found) == set(bound) and len(found) == 13
     assert "eigenexa_sturm_bisect_f64" in found
     assert {"eigenexa_sub_matmul_c64", "eigenexa_sub_matmul_c128"} <= set(
         found)
+    assert {f"eigenexa_householder_vector_{s}"
+            for s in ("f32", "f64", "c64", "c128")} <= set(found)
     for name, params in found.items():
         assert len(params) == len(bound[name]), name
         for param, ctype in zip(params, bound[name]):
@@ -651,7 +655,7 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("phase", ["kernel", "same_bits", "symv",
                                    "rank2k_window", "sturm",
-                                   "sturm_workers"])
+                                   "sturm_workers", "householder_vector"])
 def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
     """The card script's kernel phases at small sizes on CPU tensors (the
     plain versions, nothing timed): every case builds its operands, views
@@ -667,6 +671,12 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
         assert {r["case"] for r in rows} >= {
             "wide_view", "odd_ld_view", "k5", "k132", "k130_of_132",
             "under_rule", "over_rule"}
+    elif phase == "householder_vector":
+        rows = cs.reflector_phase(cpu, timed=False)
+        assert [(r["m"], r["dtype"]) for r in rows] == list(
+            cs.REFLECTOR_CASES)
+        assert all(r["rerun_bitwise_equal"] and r["max_ulps"] == 0
+                   and r["launches"] == 0 for r in rows)
     elif phase == "same_bits":
         rows = cs.same_bits_phase(cpu, big=264, block=64)
         assert len(rows) == 4
@@ -745,6 +755,7 @@ def test_chip_smoke_f64_phase_passes_on_the_cpu(monkeypatch):
     check passes, and no kernel is launched."""
     cs = _chip_smoke()
     monkeypatch.setattr(cs, "expected_launches", lambda n: 0)
+    monkeypatch.setattr(cs, "reflectors", lambda n: 0)
     monkeypatch.setattr(cs, "expected_launches_windowed", lambda n: {
         name: 0 for name in tk.LAUNCHES})
     rolled, windowed = cs.f64_phase(torch.device("cpu"), 200)
