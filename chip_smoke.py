@@ -57,7 +57,16 @@ result line:
               4096 and 64 (f64 and f32) and 8192 (c128) at pivot 1: v, τ
               and β within 16 ULPs of the plain version, a rerun bitwise
               equal, Hᴴx = β·e_p, its call and device times beside the
-              plain version's 27 ops;
+              plain version's 27 ops; then ``pair_reflectors`` on pairs of
+              columns of 8192, 4096 and 66 (f64 and f32) at c0 = 0: V, τ
+              and T within 16 ε of the plain version's, a rerun bitwise
+              equal, V·T·Vᵀ zeroing each column below its pivot, its call
+              and device times beside the plain version's 43 ops; then
+              ``pair_update`` at m = 8192 and 4096 with 62 and 30 earlier
+              columns, and at 66 with 2 (f64 and f32): W's new columns
+              within 4·√m·ε of the plain version's, U's new columns V's
+              bits, a rerun bitwise equal, its times beside the plain
+              version's 16 ops;
 4. slice    — the rolled path: ``eigen_s(frank(8192, float32))`` cold, warm
               and with the stage split; checks residual, orthogonality, the
               scaled eigenvalue error, the kernel launch counts per solve
@@ -224,6 +233,18 @@ KERNELS = {
         "source": "eigenexa_tpu_torch/csrc/householder.cu",
         "replaces": "eigenexa_tpu/ops/householder.py:63 (jnp ops, not a "
                     "TPU kernel)"},
+    # no TPU kernel either: the band-2 pair's CholeskyQR2, two reflectors
+    # and T are jnp ops inside each panel's program; eager, some 43 launches
+    "pair_reflectors": {
+        "source": "eigenexa_tpu_torch/csrc/householder.cu",
+        "replaces": "eigenexa_tpu/ops/band.py:56 (jnp ops, not a TPU "
+                    "kernel)"},
+    # the pair's W columns and stores: jnp ops in the panel's program too;
+    # eager, some 16 launches
+    "pair_update": {
+        "source": "eigenexa_tpu_torch/csrc/householder.cu",
+        "replaces": "eigenexa_tpu/ops/band.py:134 (jnp ops, not a TPU "
+                    "kernel)"},
 }
 # error bound factor per dtype: only the summation order differs
 ERR_C = {"float32": 1e-5, "float64": 1e-13, "complex64": 1e-5,
@@ -274,14 +295,20 @@ def reflectors(n: int) -> int:
     return max(n - 1, 0)
 
 
-def reflectors_sx(n: int, nb_f: int = NB_F) -> int:
-    """householder_vector launches of one band-2 reduction of n: two a
+def pairs_sx(n: int, nb_f: int = NB_F) -> int:
+    """pair_reflectors launches of one band-2 reduction of n: one a
     reflector pair of every full panel, and in the remainder (its m rows
-    padded to an even m + 2 or m + 3) two a pair but the last, whose
+    padded to an even m + 2 or m + 3) one a pair but the last, whose
     pivots lie past the padded block (``ops/band.py``)."""
     panels = _sx_panels(n, nb_f)
     rest = n - panels * nb_f
-    return panels * nb_f + rest + rest % 2
+    return (panels * nb_f + rest + rest % 2) // 2
+
+
+def updates_sx(n: int, nb_f: int = NB_F) -> int:
+    """pair_update launches of one band-2 reduction of n: one a reflector
+    pair, the remainder's last too (``ops/band.py``)."""
+    return pairs_sx(n, nb_f) + int(n > _sx_panels(n, nb_f) * nb_f)
 
 
 def _full_panels(n: int, nb_f: int) -> int:
@@ -320,15 +347,16 @@ def expected_launches_sx(n: int, windowed: bool, trbak: bool = True,
     windowed, one symv_lower (nc = 2) a reflector pair and one
     rank2k_update_window a panel; one sub_matmul a WY block of the
     back-transform where the mode runs it; either way the reduction's
-    reflectors."""
+    reflector pairs."""
     panels = _sx_panels(n, nb_f)
     back = -(-(n - 1) // nb_b) if trbak else 0
     if windowed:
         return _want(symv_lower=panels * nb_f // 2,
                      rank2k_update_window=panels, sub_matmul=back,
-                     householder_vector=reflectors_sx(n, nb_f))
-    return _want(sub_matmul=panels + back,
-                 householder_vector=reflectors_sx(n, nb_f))
+                     pair_reflectors=pairs_sx(n, nb_f),
+                     pair_update=updates_sx(n, nb_f))
+    return _want(sub_matmul=panels + back, pair_reflectors=pairs_sx(n, nb_f),
+                 pair_update=updates_sx(n, nb_f))
 
 
 def sx_last_t0(n: int, nb_f: int = NB_F) -> int:
@@ -802,6 +830,171 @@ def reflector_phase(device, timed: bool, cases=REFLECTOR_CASES):
             and launched == (2 if device.type == "cuda" else 0),
             "disagrees with its plain version, or a rerun or the launch "
             "count differs"))
+    return rows
+
+
+# the reflector pair's rows: (m, dtype), the rolled pair's length at the
+# first panel of n = 8192, at mid-reduction and at the remainder's block
+PAIR_CASES = ((8192, "float64"), (4096, "float64"), (66, "float64"),
+              (8192, "float32"), (4096, "float32"), (66, "float32"))
+# V's columns, τ and T against the plain version in ε of the largest entry
+# of each piece: the six sums run in other orders on the two sides
+PAIR_EPS = 16
+# real operations of one pair a row, about: CholeskyQR2's three dots and two
+# updates, each reflector's max, scaled sum and quotient, g·v0, v0·v1
+PAIR_OPS_PER_ROW = 30
+
+
+def _pair_eps(got, ref) -> float:
+    """The largest distance of (V, τ, T) from the plain version's, each of
+    V's columns, τ and T in ε of the largest entry of the plain piece."""
+    import torch
+
+    eps = torch.finfo(ref[0].dtype).eps
+    pieces = ((got[0][:, 0], ref[0][:, 0]), (got[0][:, 1], ref[0][:, 1]),
+              (got[1], ref[1]), (got[2], ref[2]))
+    worst = 0.0
+    for g, r in pieces:
+        g, r = g.double(), r.double()
+        if not (bool(g.isfinite().all()) and bool(r.isfinite().all())):
+            return float("inf")
+        scale = float(r.abs().max())
+        diff = float((g - r).abs().max())
+        if diff:
+            worst = max(worst, diff / (eps * scale) if scale else float("inf"))
+    return worst
+
+
+def pair_reflector_phase(device, timed: bool, cases=PAIR_CASES):
+    """``pair_reflectors`` against its plain version on the card at c0 = 0
+    of two random columns of each length: V, τ and T within PAIR_EPS·ε of
+    the plain version's, a rerun bitwise equal, Hᵀ = I − V·Tᵀ·Vᵀ zeroing
+    column 0 below row 2 and column 1 below row 3 within (m + 4)·ε of
+    their norms, and one launch a call.  If `timed`, the call with its
+    host side (``ms``), the card's time of a call (``device_ms``), the
+    plain version's two times, and the bound: the two columns read and V
+    written once at the memory rate.  No library call computes the pair.
+    Returns one row per case."""
+    import torch
+    from eigenexa_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=device).manual_seed(1919)
+    rows, c0 = [], 0
+    for m, name in cases:
+        dtype = getattr(torch, name)
+        x = torch.randn(m, 2, generator=gen, dtype=dtype, device=device)
+        before = kernels.LAUNCHES["pair_reflectors"]
+        got = kernels.pair_reflectors(x, c0)
+        again = kernels.pair_reflectors(x, c0)
+        _sync(device)
+        launched = kernels.LAUNCHES["pair_reflectors"] - before
+        ref = kernels._pair_reflectors_ref(x, c0)
+        same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
+        xd = x.double().clone()
+        xd[:c0 + 2] = 0
+        vd, td = got[0].double(), got[2].double()
+        image = xd - vd @ (td.T @ (vd.T @ xd))
+        identity = max(
+            float(image[below:, j].abs().max()) / (
+                torch.finfo(dtype).eps * float(xd[:, j].norm()))
+            for j, below in ((0, c0 + 3), (1, c0 + 4)))
+        err = _pair_eps(got, ref)
+        row = {"name": "pair_reflectors", "case": f"m{m}", "dtype": name,
+               "m": m, "c0": c0,
+               "max_abs_err": max(float((g.double() - r.double()).abs().max())
+                                  for g, r in zip(got, ref)),
+               "max_eps": err, "bound_eps": PAIR_EPS,
+               "rerun_bitwise_equal": same, "identity": identity,
+               "identity_bound": m + 4, "launches": launched}
+        if timed:
+            _times(row, lambda: kernels.pair_reflectors(x, c0),
+                   lambda: kernels._pair_reflectors_ref(x, c0), None,
+                   device)
+            row["plain_device_ms"] = _device_ms(
+                lambda: kernels._pair_reflectors_ref(x, c0), device)
+            row.update(_bound(name, 4 * m + 6, PAIR_OPS_PER_ROW * m))
+        rows.append(_report(
+            row, err <= PAIR_EPS and same and identity <= m + 4
+            and launched == (2 if device.type == "cuda" else 0),
+            "disagrees with its plain version, or a rerun or the launch "
+            "count differs"))
+    return rows
+
+
+# the pair update's rows: (m, earlier columns c0, dtype), the rolled
+# panel's last pair at the first panel of n = 8192, a middle pair at mid-
+# reduction, the remainder's second pair
+UPDATE_CASES = ((8192, 62, "float64"), (4096, 30, "float64"),
+                (66, 2, "float64"), (8192, 62, "float32"),
+                (4096, 30, "float32"), (66, 2, "float32"))
+# W's new columns against the plain version in √m·ε of their largest entry
+UPDATE_EPS = 4
+
+
+def pair_update_phase(device, timed: bool, cases=UPDATE_CASES,
+                      nb: int = NB_F):
+    """``pair_update`` against its plain version on the card: a panel of
+    `nb` pairs' columns (U and W with c0 earlier columns) of random
+    entries, B·V, V and an upper triangular T.  W's new columns within
+    UPDATE_EPS·√m·ε of the plain version's largest, U's new columns V's
+    bits, every other entry untouched, a rerun bitwise equal, one launch a
+    call.  If `timed`, the call with its host side, the card's time of a
+    call, the plain version's two times, and the bound: U and W's earlier
+    columns, B·V and V read once, the four new columns written once.
+    Returns one row per case."""
+    import torch
+    from eigenexa_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=device).manual_seed(2020)
+    rows = []
+    for m, c0, name in cases:
+        dtype = getattr(torch, name)
+
+        def draw(*shape):
+            return torch.randn(*shape, generator=gen, dtype=dtype,
+                               device=device)
+
+        uw, bv, v, t = draw(m, 2 * nb), draw(m, 2), draw(m, 2), draw(2, 2)
+        t[1, 0] = 0
+        outs = []
+        for fn in (kernels.pair_update, kernels.pair_update,
+                   kernels._pair_update_ref):
+            panel = uw.clone()
+            before = kernels.LAUNCHES["pair_update"]
+            fn(bv, panel[:, :nb], panel[:, nb:], c0, v, t)
+            outs.append((panel, kernels.LAUNCHES["pair_update"] - before))
+        _sync(device)
+        (got, launched), (again, _), (ref, _) = outs
+        same = bool(torch.equal(got, again))
+        new = [c0, c0 + 1, nb + c0, nb + c0 + 1]
+        rest = [j for j in range(2 * nb) if j not in new]
+        kept = bool(torch.equal(got[:, rest], ref[:, rest])
+                    and torch.equal(got[:, c0:c0 + 2], v))
+        diff = float((got[:, nb + c0:nb + c0 + 2].double()
+                      - ref[:, nb + c0:nb + c0 + 2].double()).abs().max())
+        scale = float(ref[:, nb + c0:nb + c0 + 2].abs().max())
+        err = diff / (torch.finfo(dtype).eps * m ** 0.5 * scale)
+        row = {"name": "pair_update", "case": f"m{m}_c{c0}", "dtype": name,
+               "m": m, "c0": c0, "max_abs_err": diff, "max_eps_sqrt_m": err,
+               "bound_eps_sqrt_m": UPDATE_EPS, "rerun_bitwise_equal": same,
+               "rest_kept": kept, "launches": launched}
+        if timed:
+            panel = uw.clone()
+            _times(row, lambda: kernels.pair_update(
+                       bv, panel[:, :nb], panel[:, nb:], c0, v, t),
+                   lambda: kernels._pair_update_ref(
+                       bv, panel[:, :nb], panel[:, nb:], c0, v, t),
+                   None, device)
+            row["plain_device_ms"] = _device_ms(
+                lambda: kernels._pair_update_ref(
+                    bv, panel[:, :nb], panel[:, nb:], c0, v, t), device)
+            row.update(_bound(name, 2 * m * c0 + 8 * m + 4,
+                              16.0 * m * c0 + 20.0 * m))
+        rows.append(_report(
+            row, err <= UPDATE_EPS and same and kept
+            and launched == (1 if device.type == "cuda" else 0),
+            "disagrees with its plain version, touches another column, or "
+            "a rerun or the launch count differs"))
     return rows
 
 
@@ -1476,16 +1669,17 @@ def modes_phase(device, n: int = N_F64):
     w_true = frank_spectrum(n, torch.float64, device)
     sturm_path = _want()
     drivers = (("eigen_s", eigen_s, expected_launches(n),
-                _full_panels(n, NB_F), reflectors(n)),
+                _full_panels(n, NB_F),
+                {"householder_vector": reflectors(n)}),
                ("eigen_sx", eigen_sx,
                 expected_launches_sx(n, False)["sub_matmul"],
-                _sx_panels(n), reflectors_sx(n)))
+                _sx_panels(n), {"pair_reflectors": pairs_sx(n),
+                                "pair_update": updates_sx(n)}))
     for name, drive, full, no_back, refl in drivers:
         w_a = None
         for mode in "ANX":
             want = _want(sub_matmul=no_back if mode == "N" else full,
-                         sturm_bisect=int(mode in "NX"),
-                         householder_vector=refl)
+                         sturm_bisect=int(mode in "NX"), **refl)
             _reset_launches(kernels)
             w, z, info = drive(a, mode=mode, profile=True)
             counts = _take_launches(kernels)
@@ -2485,7 +2679,9 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
                                 "fused_f64_path_first_column"),
                  "rank2k_update_window": ("first_panel",
                                           "f64_path_first_panel"),
-                 "householder_vector": ("m8192", "m8192")}
+                 "householder_vector": ("m8192", "m8192"),
+                 "pair_reflectors": ("m8192", "m8192"),
+                 "pair_update": ("m8192_c62", "m8192_c62")}
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")
     f64_keys = ("ms", "device_ms", "bound_ms", "library_ms",
@@ -2614,7 +2810,10 @@ def _drive(device, gpu: str, host) -> int:
               ("sturm_bisect", "sturm_bisect", sturm_phase,
                (N_STURM, N_F64, True, 32, host)),
               ("householder_vector", "householder_vector", reflector_phase,
-               (True,)))
+               (True,)),
+              ("pair_reflectors", "pair_reflectors", pair_reflector_phase,
+               (True,)),
+              ("pair_update", "pair_update", pair_update_phase, (True,)))
     rows = []
     for label, kernel, phase, args in phases:
         if kernel in names:
@@ -2661,7 +2860,10 @@ def _drive(device, gpu: str, host) -> int:
             and bench["sturm_bisect"] > 0
             and dist["sx N gloo_2x2"]["sturm_bisect"] > 0
             and all(counts["householder_vector"] > 0 for path, counts in paths
-                    if not path.startswith("dist "))):
+                    if not path.startswith("dist ") and "sx" not in path)
+            and all(path[name] > 0
+                    for name in ("pair_reflectors", "pair_update")
+                    for path in (sx_rolled, sx_windowed, large_sx, modes))):
         raise AssertionError("a kernel of a main path was never launched")
 
     print(json.dumps(_kernels_line(rows, {**windowed, "sturm_bisect":

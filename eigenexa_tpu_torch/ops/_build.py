@@ -47,6 +47,11 @@ _ARGTYPES = {
     "eigenexa_sturm_bisect": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     # (m, p, x, v, tau, beta, stream)
     "eigenexa_householder_vector": [_I, _I, _P, _P, _P, _P, _P],
+    # (m, p, x, ldx, v, ldv, tau, t, stream)
+    "eigenexa_pair_reflectors": [_I, _I, _P, _LD, _P, _LD, _P, _P, _P],
+    # (m, c0, j0, bv, ldb, u, w, ldu, v, ldv, t, scratch, stream)
+    "eigenexa_pair_update": [_I, _I, _I, _P, _LD, _P, _P, _LD, _P, _LD, _P,
+                             _P, _P],
 }
 # the dtypes each entry point is built for (the suffix of its name): f32 and
 # f64, but the Sturm recurrence, which is f64 only, and the whole-matrix

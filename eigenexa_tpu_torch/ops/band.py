@@ -24,6 +24,11 @@ Two implementations of the panel loop, as ``ops/householder.py`` has:
   own dead columns.  The pair's in-panel corrections are subtracted in
   torch after the matvec (the fused ``panel=`` form takes one vector).
 
+Either way a pair's reflectors and T are one ``kernels.pair_reflectors``
+launch and its W columns with the stores one ``kernels.pair_update``
+launch on the card (``csrc/householder.cu``), the plain versions on the
+CPU.
+
 Reflector storage matches ``TridiagResult``: column k of ``v`` holds the
 reflector that zeroes A[k+3:, k] (pivot row k+2, zeros in rows ≤ k+1), so
 the WY back-transform (``solvers/trbak.py``) applies unchanged (reference:
@@ -42,8 +47,8 @@ from typing import NamedTuple
 import torch
 
 from eigenexa_tpu_torch.ops import householder as hh
-from eigenexa_tpu_torch.ops.kernels import (WIN_TM, householder_vector,
-                                            rank2k_update,
+from eigenexa_tpu_torch.ops import kernels
+from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
                                             rank2k_update_window, symv_lower,
                                             symv_workspace)
 from eigenexa_tpu_torch.utils.profiler import span
@@ -58,64 +63,13 @@ class BandResult(NamedTuple):
     tau: torch.Tensor  # (n,)   reflector scales (0 -> identity)
 
 
-def pair_reflectors(x0, x1, c0: int):
-    """The band-2 reflector pair for columns (c0, c0+1), the tall-skinny-QR
-    scheme of eigen_prd_compute_u (src/eigen_prd_t4x.F:83):
-
-    1. CholeskyQR2: the second column is orthogonalized against the first
-       through its Gram coefficient, exactly twice (eigen_prd_t4x.F:140-283);
-    2. reflector 0 from the first column, pivot row c0+2;
-    3. H₀ applied to the orthogonalized second column analytically,
-       v₀ᵀ·a₁ = −β₀·a₁[p₀]/(α₀−β₀), divided only where τ₀ ≠ 0 (the
-       reference's rank-1 fix-up, eigen_prd_t4x.F:305);
-    4. reflector 1 from the result, pivot row c0+3.
-
-    The JAX function takes the masks ``idx > c0+1`` and ``idx > c0+2``; the
-    port's ``householder_vector`` takes the pivots c0+2 and c0+3.  Returns
-    (V (m, 2), τ₀, τ₁, T (2, 2)) with H₀·H₁ = I − V·T·Vᵀ, T upper
-    triangular.
-    """
-    m = x0.shape[0]
-    p = c0 + 2
-    a0 = x0.clone()
-    a0[:p] = 0
-    a1 = x1.clone()
-    a1[:p] = 0
-    t11 = torch.dot(a0, a0)
-    pos = t11 > 0
-    safe_t11 = torch.where(pos, t11, torch.ones_like(t11))
-    zero = torch.zeros_like(t11)
-    for _ in range(2):           # CholeskyQR2: twice is enough
-        s12 = torch.dot(a0, a1) / safe_t11
-        a1 = a1 - torch.where(pos, s12, zero) * a0
-    v0, tau0, beta0 = householder_vector(a0, p)
-    p0 = min(p, m - 1)
-    denom0 = torch.where(tau0 != 0, a0[p0] - beta0, torch.ones_like(tau0))
-    vta1 = -beta0 * a1[p0] / denom0
-    c1 = a1 - tau0 * vta1 * v0
-    v1, tau1, _ = householder_vector(c1, p + 1)
-    t01 = -tau0 * tau1 * torch.dot(v0, v1)
-    t = torch.stack([torch.stack([tau0, t01]), torch.stack([zero, tau1])])
-    return torch.stack([v0, v1], dim=1), tau0, tau1, t
-
-
-def _pair_update(b_v, u, w, v_pair, t):
-    """W's two columns for the pair: P = (B·V − U·(WᵀV) − W·(UᵀV))·T and
-    W = P − ½·V·(Tᵀ·Vᵀ·P), so that Hᵀ·A·H = A − V·Wᵀ − W·Vᵀ (the 2×2
-    coupling matrix of eigen_prd_compute_v, src/eigen_prd.F:363).  ``b_v``
-    is B·V; ``u``, ``w`` the panel's earlier columns."""
-    if u.shape[1]:
-        b_v = b_v - u @ (w.T @ v_pair) - w @ (u.T @ v_pair)
-    p = b_v @ t
-    s = t.T @ (v_pair.T @ p)
-    return p - 0.5 * (v_pair @ s)
-
-
 def band2_panel(b: torch.Tensor, nb: int):
     """Factor ``nb`` (even) columns of the trailing matrix ``b`` (m×m) as
     nb/2 reflector pairs.  ``b`` is frozen at panel start; each pair sees
     the earlier ones through A_cur = B − U·Wᵀ − W·Uᵀ.  Returns (U, W, τ);
-    after it the trailing update is b[nb:, nb:] −= U·Wᵀ + W·Uᵀ on rows nb:."""
+    after it the trailing update is b[nb:, nb:] −= U·Wᵀ + W·Uᵀ on rows nb:.
+    A pair's spans: form, reflector, matvec, w (its four steps, named as
+    the tridiagonal column's)."""
     m = b.shape[0]
     uw = b.new_zeros((m, 2 * nb))
     u_p, w_p = uw[:, :nb], uw[:, nb:]
@@ -123,20 +77,23 @@ def band2_panel(b: torch.Tensor, nb: int):
     for c0 in range(0, nb, 2):
         with span("prd.pair"):
             u, w = u_p[:, :c0], w_p[:, :c0]
-            cols = b[:, c0:c0 + 2]
-            if c0:
-                cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
-            v_pair, tau0, tau1, t = pair_reflectors(cols[:, 0], cols[:, 1],
-                                                    c0)
+            with span("prd.pair.form"):
+                cols = b[:, c0:c0 + 2]
+                if c0:
+                    cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
+            with span("prd.pair.reflector"):
+                v_pair, _, t = kernels.pair_reflectors(
+                    cols, c0, tau_out=tau_p[c0:c0 + 2])
             # B·V, the PDSYMV2 analogue (reference: eigen_prd_au,
             # src/eigen_prd_t2.F:90), as two matvecs: on the H100 cuBLAS's
             # f32 product with two columns summed so much worse than its
             # matvec that the f32 reduction of Frank n=8192 kept w_scaled
             # 132 against 0.96 (tools/band_accuracy.py)
-            b_v = torch.stack([b @ v_pair[:, 0], b @ v_pair[:, 1]], dim=1)
-            w_p[:, c0:c0 + 2] = _pair_update(b_v, u, w, v_pair, t)
-            u_p[:, c0:c0 + 2] = v_pair
-            tau_p[c0:c0 + 2] = torch.stack([tau0, tau1])
+            with span("prd.pair.matvec"):
+                b_v = torch.stack([b @ v_pair[:, 0], b @ v_pair[:, 1]],
+                                  dim=1)
+            with span("prd.pair.w"):
+                kernels.pair_update(b_v, u_p, w_p, c0, v_pair, t)
     return u_p, w_p, tau_p
 
 
@@ -226,17 +183,18 @@ def _pair_win(b: torch.Tensor, j0: int, t0: int, nb: int, ws: dict):
         c0 = j0 + jc
         with span("prd.pair"):
             u, w = u_p[:, :jc], w_p[:, :jc]
-            cols = b[:, c0:c0 + 2]
-            if jc:
-                cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
-            v_pair, tau0, tau1, t = pair_reflectors(cols[:, 0], cols[:, 1],
-                                                    c0)
-            b_v = symv_lower(b, v_pair, t0=t0, **ws)
-            w_pair = _pair_update(b_v, u, w, v_pair, t)
-            w_pair[:j0] = 0
-            u_p[:, jc:jc + 2] = v_pair
-            w_p[:, jc:jc + 2] = w_pair
-            tau_p[jc:jc + 2] = torch.stack([tau0, tau1])
+            with span("prd.pair.form"):
+                cols = b[:, c0:c0 + 2]
+                if jc:
+                    cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
+            with span("prd.pair.reflector"):
+                v_pair, _, t = kernels.pair_reflectors(
+                    cols, c0, tau_out=tau_p[jc:jc + 2])
+            with span("prd.pair.matvec"):
+                b_v = symv_lower(b, v_pair, t0=t0, **ws)
+            with span("prd.pair.w"):
+                kernels.pair_update(b_v, u_p, w_p, jc, v_pair, t,
+                                    zero_rows=j0)
     return u_p, w_p, tau_p
 
 

@@ -1,5 +1,6 @@
 """The port's kernel wrappers: ``sub_matmul``, ``symv_lower``,
-``rank2k_update_window``, ``sturm_bisect`` and ``householder_vector``.
+``rank2k_update_window``, ``sturm_bisect``, ``householder_vector``,
+``pair_reflectors`` and ``pair_update``.
 
 Counterpart of ``eigenexa_tpu/ops/pallas_kernels.py``.  Each kernel is
 hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
@@ -26,7 +27,12 @@ hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
   PyTorch on the card could only issue launch by launch;
 * ``householder_vector``: the reflector of one column (dlarfg, zlarfg) in
   one launch, where its jnp form, which XLA fuses inside the panel's
-  program, is some 27 eager ops.  No TPU kernel's port either.
+  program, is some 27 eager ops.  No TPU kernel's port either;
+* ``pair_reflectors``: the band-2 reduction's reflector pair (CholeskyQR2
+  of two columns, their two reflectors and the 2×2 T) in one launch,
+  where its eager form is some 43 ops; ``pair_update``: the pair's two
+  columns of W and its stores into the panel, one launch for some 16
+  ops.  No TPU kernel's port either.
 
 ``WIN_TM`` is the window granularity TM: a window starts at row and column
 ``t0·TM``.  It says nothing about the kernels' own tiles, and a matrix edge
@@ -36,7 +42,8 @@ Dispatch is by device, never by a fallback:
 
 * a CPU tensor takes the plain version (``_sub_matmul_ref``,
   ``_symv_lower_ref``, ``_rank2k_window_ref``, ``_sturm_bisect_ref``,
-  ``_householder_vector_ref``); the parity tests and the CPU solver run it;
+  ``_householder_vector_ref``, ``_pair_reflectors_ref``,
+  ``_pair_update_ref``); the parity tests and the CPU solver run it;
 * a CUDA tensor launches the kernel, or raises on what the kernel does not
   take (other dtypes, complex but for ``sub_matmul`` and
   ``householder_vector``, non-unit column stride, bad aliasing, more than
@@ -59,7 +66,8 @@ import torch
 from eigenexa_tpu_torch.ops._build import load_library
 
 LAUNCHES = {"sub_matmul": 0, "symv_lower": 0, "rank2k_update_window": 0,
-            "sturm_bisect": 0, "householder_vector": 0}
+            "sturm_bisect": 0, "householder_vector": 0, "pair_reflectors": 0,
+            "pair_update": 0}
 
 WIN_TM = 512       # window granularity TM of the windowed reduction
 SYMV_MAX_NC = 8    # most vectors one symv_lower call takes
@@ -280,6 +288,165 @@ def householder_vector(x: torch.Tensor, p: int):
     _raise_on(err, "householder_vector")
     LAUNCHES["householder_vector"] += 1
     return v, tau, beta
+
+
+def _pair_reflectors_ref(x: torch.Tensor, c0: int, tau_out=None):
+    """Plain PyTorch version of :func:`pair_reflectors`, op by op."""
+    x0, x1 = x[:, 0], x[:, 1]
+    m = x0.shape[0]
+    p = c0 + 2
+    a0 = x0.clone()
+    a0[:p] = 0
+    a1 = x1.clone()
+    a1[:p] = 0
+    t11 = torch.dot(a0, a0)
+    pos = t11 > 0
+    safe_t11 = torch.where(pos, t11, torch.ones_like(t11))
+    zero = torch.zeros_like(t11)
+    for _ in range(2):           # CholeskyQR2: twice is enough
+        s12 = torch.dot(a0, a1) / safe_t11
+        a1 = a1 - torch.where(pos, s12, zero) * a0
+    v0, tau0, beta0 = householder_vector(a0, p)
+    p0 = min(p, m - 1)
+    denom0 = torch.where(tau0 != 0, a0[p0] - beta0, torch.ones_like(tau0))
+    vta1 = -beta0 * a1[p0] / denom0
+    c1 = a1 - tau0 * vta1 * v0
+    v1, tau1, _ = householder_vector(c1, p + 1)
+    t01 = -tau0 * tau1 * torch.dot(v0, v1)
+    t = torch.stack([torch.stack([tau0, t01]), torch.stack([zero, tau1])])
+    tau = torch.stack([tau0, tau1])
+    if tau_out is not None:
+        tau_out.copy_(tau)
+        tau = tau_out
+    return torch.stack([v0, v1], dim=1), tau, t
+
+
+def pair_reflectors(x: torch.Tensor, c0: int, tau_out=None):
+    """The band-2 reflector pair of the columns x[:, 0], x[:, 1] (columns
+    c0 and c0+1 of the reduction, pivots c0+2 and c0+3), the tall-skinny-QR
+    scheme of eigen_prd_compute_u (src/eigen_prd_t4x.F:83):
+
+    1. CholeskyQR2: the second column is orthogonalized against the first
+       through its Gram coefficient, exactly twice (eigen_prd_t4x.F:140-283);
+    2. reflector 0 from the first column, pivot row c0+2;
+    3. H₀ applied to the orthogonalized second column analytically,
+       v₀ᵀ·a₁ = −β₀·a₁[p₀]/(α₀−β₀), divided only where τ₀ ≠ 0 (the
+       reference's rank-1 fix-up, eigen_prd_t4x.F:305);
+    4. reflector 1 from the result, pivot row c0+3.
+
+    Returns (V (m, 2), τ (2,), T (2, 2)) with H₀·H₁ = I − V·T·Vᵀ, T upper
+    triangular; τ is written into ``tau_out`` (2 elements) where given.
+    x: (m, 2), f32 or f64.  A CPU tensor, and a first pivot past the end
+    (c0+2 ≥ m: no reflector, nothing launched), take the plain version; a
+    CUDA tensor launches ``csrc/householder.cu`` once, which agrees with
+    the plain version to rounding (its six sums run in another, fixed,
+    order), or raises on a row whose two entries are not adjacent or on
+    another dtype.
+    """
+    m = x.shape[0]
+    if x.device.type == "cpu" or c0 + 2 >= m:
+        return _pair_reflectors_ref(x, c0, tau_out)
+    _check_kernel_dtype("pair_reflectors", x)
+    if x.ndim != 2 or x.shape[1] != 2 or c0 < 0:
+        raise ValueError(f"pair_reflectors: x{tuple(x.shape)} and c0 = {c0} "
+                         "are not two columns and a pair inside them")
+    if x.stride(1) != 1 or x.stride(0) < 2:
+        raise ValueError("pair_reflectors: a row's two entries must be "
+                         f"adjacent, got strides {x.stride()}")
+    if tau_out is None:
+        tau_out = torch.empty((2,), dtype=x.dtype, device=x.device)
+    elif (tau_out.shape != (2,) or tau_out.dtype != x.dtype
+          or tau_out.device != x.device or tau_out.stride(0) != 1):
+        raise ValueError("pair_reflectors: tau_out must be 2 adjacent "
+                         "elements of x's dtype on x's device")
+    v = torch.empty((m, 2), dtype=x.dtype, device=x.device)
+    t = torch.empty((2, 2), dtype=x.dtype, device=x.device)
+    fn = getattr(load_library(),
+                 "eigenexa_pair_reflectors_" + _SUFFIX[x.dtype])
+    args = (m, c0 + 2, x.data_ptr(), x.stride(0), v.data_ptr(), 2,
+            tau_out.data_ptr(), t.data_ptr())
+    # the device guard is entered only where x's card is not current
+    if x.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "pair_reflectors")
+    LAUNCHES["pair_reflectors"] += 1
+    return v, tau_out, t
+
+
+PAIR_UPDATE_MAX_COLS = 256   # most earlier columns pair_update takes
+_PAIR_UPDATE_SLABS = 64      # most row slabs of csrc/householder.cu's
+
+
+def _pair_update_ref(b_v, u_p, w_p, c0: int, v, t, zero_rows: int = 0):
+    """Plain PyTorch version of :func:`pair_update`, op by op."""
+    u, w = u_p[:, :c0], w_p[:, :c0]
+    if c0:
+        b_v = b_v - u @ (w.T @ v) - w @ (u.T @ v)
+    p = b_v @ t
+    s = t.T @ (v.T @ p)
+    w_pair = p - 0.5 * (v @ s)
+    if zero_rows:
+        w_pair[:zero_rows] = 0
+    w_p[:, c0:c0 + 2] = w_pair
+    u_p[:, c0:c0 + 2] = v
+
+
+def pair_update(b_v, u_p, w_p, c0: int, v, t, zero_rows: int = 0) -> None:
+    """The reflector pair's two columns of W, P = (B·V − U·(WᵀV) −
+    W·(UᵀV))·T and W = P − ½·V·(Tᵀ·Vᵀ·P), so that Hᵀ·A·H = A − V·Wᵀ −
+    W·Vᵀ (the 2×2 coupling matrix of eigen_prd_compute_v,
+    src/eigen_prd.F:363), stored with V into the panel: columns c0, c0+1
+    of ``w_p`` and ``u_p``, whose first c0 columns are the panel's
+    earlier U and W.  W's rows before ``zero_rows`` are set to zero (the
+    windowed frame's stale rows).
+
+    b_v: B·V (m, 2); u_p, w_p: (m, ≥ c0+2), one row stride; v: (m, 2);
+    t: (2, 2); f32 or f64.  A CPU tensor takes the plain version; a CUDA
+    tensor calls ``csrc/householder.cu`` once (three launches over slabs
+    of the rows), which agrees with the plain version to rounding (its
+    sums run in another, fixed, order), or
+    raises on rows whose entries are not adjacent, on more than
+    ``PAIR_UPDATE_MAX_COLS`` earlier columns or on another dtype.
+    """
+    if b_v.device.type == "cpu":
+        return _pair_update_ref(b_v, u_p, w_p, c0, v, t, zero_rows)
+    _check_kernel_dtype("pair_update", b_v)
+    m = b_v.shape[0]
+    mats = (b_v, u_p, w_p, v, t)
+    if (any(x.dtype != b_v.dtype or x.device != b_v.device for x in mats)
+            or any(x.ndim != 2 for x in mats) or b_v.shape != (m, 2)
+            or v.shape != (m, 2) or t.shape != (2, 2)
+            or u_p.shape != w_p.shape or u_p.shape[0] != m
+            or not 0 <= c0 <= min(u_p.shape[1] - 2, PAIR_UPDATE_MAX_COLS)
+            or zero_rows < 0):
+        raise ValueError(f"pair_update: b_v{tuple(b_v.shape)}, "
+                         f"u_p{tuple(u_p.shape)}, w_p{tuple(w_p.shape)}, "
+                         f"v{tuple(v.shape)}, t{tuple(t.shape)} and c0 = "
+                         f"{c0} are not one pair of one panel")
+    if (any(x.stride(1) != 1 for x in mats) or not t.is_contiguous()
+            or u_p.stride(0) != w_p.stride(0)
+            or min(b_v.stride(0), v.stride(0)) < 2
+            or u_p.stride(0) < u_p.shape[1]):
+        raise ValueError("pair_update: every row's entries must be "
+                         "adjacent, and u_p's rows w_p's stride apart")
+    # the slabs' partial sums of Wᵀ·V, Uᵀ·V and Vᵀ·P
+    scratch = torch.empty((_PAIR_UPDATE_SLABS * (4 * c0 + 4),),
+                          dtype=b_v.dtype, device=b_v.device)
+    fn = getattr(load_library(), "eigenexa_pair_update_" + _SUFFIX[b_v.dtype])
+    args = (m, c0, zero_rows, b_v.data_ptr(), b_v.stride(0),
+            u_p.data_ptr(), w_p.data_ptr(), u_p.stride(0), v.data_ptr(),
+            v.stride(0), t.data_ptr(), scratch.data_ptr())
+    # the device guard is entered only where the card is not current
+    if b_v.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(b_v.device).cuda_stream)
+    else:
+        with torch.cuda.device(b_v.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "pair_update")
+    LAUNCHES["pair_update"] += 1
 
 
 # ---------------------------------------------------------------------------

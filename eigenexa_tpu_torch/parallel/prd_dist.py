@@ -56,7 +56,7 @@ from eigenexa_tpu_torch.parallel.trd_dist import _dist_householder
 
 def _pair_reflectors(cols, g_x, row0: int, c0: int, mesh):
     """The reflector pair of columns (c0, c0+1), the distributed twin of
-    ``band.pair_reflectors`` (reference: eigen_prd_compute_u,
+    ``kernels.pair_reflectors`` (reference: eigen_prd_compute_u,
     src/eigen_prd_t4x.F:83).  cols: this rank's rows [row0, row0 + m_x) of
     the two columns; g_x: their global indices.  Returns (V (m_x, 2), τ₀,
     τ₁), the same τ on every rank; T's corner needs v0·v1, which the

@@ -77,3 +77,139 @@ def identity_error(x, p: int, v, tau, beta) -> float:
     if err == 0:
         return 0.0
     return err / (torch.finfo(x.dtype).eps * scale)
+
+
+# the band-2 reflector pair, ``pair_reflectors``
+
+def pair_cases(dtype, ms=(5, 6, 66, 1000)):
+    """(label, m, c0, x) of the reflector pair's checks, x (m, 2): random
+    columns at c0 = 0, 2, m−4 (the second reflector's tail is empty) and
+    m−3 (its pivot lies past the end) at each m; then at m = 66, c0 = 10
+    a zero first column (CholeskyQR2 leaves the second alone), a zero
+    second column, a second column parallel to the first (CholeskyQR2
+    leaves rounding), a first column zero below its pivot (reflector 0
+    idles), a negative pivot, and both columns scaled by 1e−100 (f64) or
+    1e−15 (f32), whose Gram products sit near the bottom of the range."""
+    g = np.random.default_rng(19)
+    out = [(f"m{m}_c{c0}", m, c0, g.standard_normal((m, 2))) for m in ms
+           for c0 in sorted({0, 2, m - 4, m - 3}) if 0 <= c0 < m - 2]
+    small = 1e-100 if dtype == torch.float64 else 1e-15
+    m, c0 = 66, 10
+    p = c0 + 2
+    for edit in ("zero_first", "zero_second", "parallel", "zero_tail",
+                 "negative_alpha", "small"):
+        x = g.standard_normal((m, 2))
+        if edit == "zero_first":
+            x[:, 0] = 0
+        elif edit == "zero_second":
+            x[:, 1] = 0
+        elif edit == "parallel":
+            x[:, 1] = -3 * x[:, 0]
+        elif edit == "zero_tail":
+            x[p + 1:, 0] = 0
+        elif edit == "negative_alpha":
+            x[p, 0] = -abs(x[p, 0]) - 1
+        elif edit == "small":
+            x *= small
+        out.append((edit, m, c0, x))
+    return out
+
+
+def pair_error(got, ref, dtype, second: bool = True) -> float:
+    """The largest distance of (V, τ, T) from the plain version's, each of
+    V's columns, τ's entries and T in units of ε times the largest entry
+    of the plain version's piece; NaN and infinities must sit where the
+    plain version has them.  Without `second`, the second reflector (V's
+    second column, τ₁ and T's last column) is left out."""
+    v, tau, t = (np.asarray(a, np.float64) for a in got)
+    rv, rtau, rt = (np.asarray(a, np.float64) for a in ref)
+    pieces = [(v[:, 0], rv[:, 0]), (tau[:1], rtau[:1]), (t[0, :1], rt[0, :1])]
+    if second:
+        pieces += [(v[:, 1], rv[:, 1]), (tau[1:], rtau[1:]), (t, rt)]
+    worst = 0.0
+    for a, r in pieces:
+        same = (a == r) | (np.isnan(a) & np.isnan(r))
+        if not (np.isfinite(a[~same]).all() and np.isfinite(r[~same]).all()):
+            return np.inf
+        if same.all():
+            continue
+        scale = np.abs(r[np.isfinite(r)]).max(initial=0.0)
+        if scale == 0:
+            return np.inf
+        worst = max(worst, float(np.abs(a[~same] - r[~same]).max()) / (
+            float(torch.finfo(dtype).eps) * scale))
+    return worst
+
+
+def pair_identity_error(x, c0: int, v, t) -> float:
+    """How far Hᵀ = I − V·Tᵀ·Vᵀ falls short of zeroing column 0 of x below
+    its pivot c0+2 and column 1 below c0+3 (the rows above c0+2 taken as
+    zero): the largest such entry over ε·‖column‖, in float64 whatever
+    x's type; ε is x's."""
+    xd = torch.as_tensor(np.asarray(x), dtype=torch.float64).clone()
+    p = c0 + 2
+    xd[:p] = 0
+    vd = torch.as_tensor(np.array(v), dtype=torch.float64)
+    td = torch.as_tensor(np.array(t), dtype=torch.float64)
+    y = xd - vd @ (td.T @ (vd.T @ xd))
+    eps = torch.finfo(torch.as_tensor(np.asarray(x)).dtype).eps
+    worst = 0.0
+    for j, below in ((0, p + 1), (1, p + 2)):
+        scale = float(torch.linalg.vector_norm(xd[:, j]))
+        tail = y[below:, j]
+        err = float(tail.abs().max()) if tail.numel() else 0.0
+        if err:
+            worst = max(worst, err / (eps * scale))
+    return worst
+
+
+# the band-2 pair's update, ``pair_update``
+
+def update_cases(dtype, ms=(5, 66, 1000)):
+    """(label, m, c0, j0, ldu, b_v, u, w, v, t) of the pair update's checks:
+    random panels with c0 = 0, 2, 30 and 62 earlier columns (a panel of
+    64; past 100 rows only 0 and 62, which take no chunk and two) at each
+    m, W zeroed before row j0 = 0 or m // 3; then at m = 40 the most
+    earlier columns the kernel takes (256), and a zero B·V.  U and W have
+    two columns of padding past the pair's."""
+    g = np.random.default_rng(23)
+    out = []
+
+    def case(label, m, c0, j0):
+        ldu = c0 + 4
+        t = g.standard_normal((2, 2))
+        t[1, 0] = 0
+        return (label, m, c0, j0, ldu, g.standard_normal((m, 2)),
+                g.standard_normal((m, ldu)), g.standard_normal((m, ldu)),
+                g.standard_normal((m, 2)), t)
+
+    for m in ms:
+        for c0 in (0, 2, 30, 62) if m <= 100 else (0, 62):
+            for j0 in sorted({0, m // 3}):
+                out.append(case(f"m{m}_c{c0}_j{j0}", m, c0, j0))
+    out.append(case("widest", 40, 256, 0))
+    zero = case("zero_bv", 66, 30, 0)
+    out.append(zero[:5] + (np.zeros((66, 2)),) + zero[6:])
+    return out
+
+
+def update_error(u, w, ref_u, ref_w, c0: int, dtype) -> float:
+    """The distance of the kernel's panel (u, w) from the plain version's:
+    W's two new columns in √m·ε of the largest entry of the plain
+    version's (Vᵀ·P sums over the m rows), and infinity where U's new
+    columns or any other entry of U or W differ in a bit."""
+    u, w, ref_u, ref_w = (np.asarray(a) for a in (u, w, ref_u, ref_w))
+    new = slice(c0, c0 + 2)
+    rest = np.ones(w.shape[1], bool)
+    rest[new] = False
+    if (u.tobytes() != ref_u.tobytes()
+            or w[:, rest].tobytes() != ref_w[:, rest].tobytes()):
+        return np.inf
+    got, ref = w[:, new].astype(np.float64), ref_w[:, new].astype(np.float64)
+    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+        return np.inf
+    diff = np.abs(got - ref).max(initial=0.0)
+    if diff == 0:
+        return 0.0
+    return float(diff) / (float(torch.finfo(dtype).eps) * got.shape[0] ** 0.5
+                          * float(np.abs(ref).max()))

@@ -314,3 +314,5 @@ inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __ddiv_rn(double a, double b) { return a / b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }

@@ -347,7 +347,8 @@ def test_windowed_eigen_s_on_the_card(cuda):
         assert tk.LAUNCHES == {"symv_lower": 1280,
                                "rank2k_update_window": 20, "sub_matmul": 11,
                                "sturm_bisect": 0,
-                               "householder_vector": n - 1}
+                               "householder_vector": n - 1,
+                               "pair_reflectors": 0, "pair_update": 0}
         w2, z2, _ = ext.eigen_s(a, ctx=ctx)
     finally:
         householder.TRD_IMPL = old
@@ -380,7 +381,8 @@ def test_windowed_eigen_s_f64_on_the_card(cuda):
         assert tk.LAUNCHES == {"symv_lower": 1088,
                                "rank2k_update_window": 17, "sub_matmul": 9,
                                "sturm_bisect": 0,
-                               "householder_vector": n - 1}
+                               "householder_vector": n - 1,
+                               "pair_reflectors": 0, "pair_update": 0}
         w2, z2, _ = ext.eigen_s(a, ctx=ctx)
     finally:
         householder.TRD_IMPL = old
@@ -660,6 +662,148 @@ def test_householder_vector_raises_on_what_the_kernel_does_not_take(cuda):
     assert tk.LAUNCHES["householder_vector"] == before
 
 
+# ---------------------------------------------------------------------------
+# the band-2 reflector pair
+# ---------------------------------------------------------------------------
+
+# V's columns, τ and T against the plain version on the same card tensor,
+# in ε of the largest entry of each piece: the six sums run in other orders
+# (cuBLAS's dots against the block's fixed order)
+PAIR_EPS = 16
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [5, 66, 1000, 8192])
+def test_pair_reflectors_matches_plain(cuda, dtype, m):
+    """The pair kernel against ``_pair_reflectors_ref`` on the cases of
+    ``pair_cases`` (the parallel case's second reflector, rounding only,
+    left out), its columns read from a wider matrix and τ written into a
+    slice: one launch a call, a rerun bitwise equal, V exactly zero above
+    each column's pivot, and Hᵀ = I − V·Tᵀ·Vᵀ zeroing each column below
+    its pivot within (m + 4)·ε of its norm.  A first pivot past the end
+    takes the plain version and launches nothing."""
+    from _householder_cases import pair_cases, pair_error, pair_identity_error
+
+    cases = pair_cases(dtype, ms=(m,))
+    cases = [c for c in cases if c[1] == m]
+    for label, _, c0, x in cases:
+        wide = torch.zeros((m, 5), dtype=dtype, device=cuda)
+        wide[:, 1:3] = torch.as_tensor(x, dtype=dtype, device=cuda)
+        xt = wide[:, 1:3]
+        taus = torch.zeros(6, dtype=dtype, device=cuda)
+        before = tk.LAUNCHES["pair_reflectors"]
+        got = tk.pair_reflectors(xt, c0, tau_out=taus[2:4])
+        again = tk.pair_reflectors(xt.contiguous(), c0)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["pair_reflectors"] == before + 2
+        assert got[1].data_ptr() == taus[2:4].data_ptr()
+        assert not taus[:2].any() and not taus[4:].any()
+        ref = tk._pair_reflectors_ref(xt, c0)
+        for g, a, r in zip(got, again, ref):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert torch.equal(g, a), label
+        host = [g.cpu().numpy() for g in got]
+        err = pair_error(host, [r.cpu().numpy() for r in ref], dtype,
+                         second=label != "parallel")
+        assert err <= PAIR_EPS, (label, err)
+        assert not host[0][:c0 + 2, 0].any() and not host[0][:c0 + 3, 1].any()
+        assert pair_identity_error(xt.cpu().numpy(), c0, host[0],
+                                   host[2]) <= m + 4, label
+    x = torch.as_tensor(cases[0][3], dtype=dtype, device=cuda)
+    before = dict(tk.LAUNCHES)
+    v, tau, t = tk.pair_reflectors(x, m - 2)
+    assert tk.LAUNCHES == before
+    assert not v.any() and not tau.any() and not t.any()
+
+
+def test_pair_reflectors_raises_on_what_the_kernel_does_not_take(cuda):
+    """Columns whose two entries a row are not adjacent, an integer dtype,
+    a complex one, a vector and a τ of the wrong form raise before anything
+    is launched."""
+    before = dict(tk.LAUNCHES)
+    x = _randn(77, 40, 4, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="adjacent"):
+        tk.pair_reflectors(x[:, ::2], 0)
+    with pytest.raises(TypeError, match="dtype"):
+        tk.pair_reflectors(torch.ones(40, 2, dtype=torch.int32,
+                                      device=cuda), 0)
+    with pytest.raises(NotImplementedError):
+        tk.pair_reflectors(x[:, :2].to(torch.complex128), 0)
+    with pytest.raises(ValueError):
+        tk.pair_reflectors(x[:, 0], 0)
+    with pytest.raises(ValueError, match="tau_out"):
+        tk.pair_reflectors(x[:, :2], 0, tau_out=x[0, :2].float())
+    assert tk.LAUNCHES == before
+
+
+# W's new columns against the plain version on the same card tensors, in
+# √m·ε of their largest entry: the sums over the panel's columns and the m
+# rows run in other orders
+UPDATE_EPS = 4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [5, 40, 66, 1000, 8192])
+def test_pair_update_matches_plain(cuda, dtype, m):
+    """The update kernel against ``_pair_update_ref`` on the cases of
+    ``update_cases`` of m rows (m = 40: the widest panel the kernel takes)
+    inside one panel buffer (U and W one row stride apart, B·V a slice of
+    a wider matrix): W's new columns within UPDATE_EPS, U's new columns
+    V's bits, every other entry untouched, a rerun bitwise equal, one
+    launch a call."""
+    from _householder_cases import update_cases, update_error
+
+    for label, rows, c0, j0, ldu, bv, u, w, v, t in update_cases(
+            dtype, ms=(m,)):
+        if rows != m:
+            continue
+        panel = torch.as_tensor(np.concatenate([u, w], axis=1), dtype=dtype,
+                                device=cuda)
+        wide = torch.zeros((m, 4), dtype=dtype, device=cuda)
+        wide[:, 1:3] = torch.as_tensor(bv, dtype=dtype, device=cuda)
+        vt, tt = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (v, t))
+        runs = []
+        for fn in (tk.pair_update, tk.pair_update, tk._pair_update_ref):
+            out = panel.clone()
+            before = tk.LAUNCHES["pair_update"]
+            fn(wide[:, 1:3], out[:, :ldu], out[:, ldu:], c0, vt, tt,
+               zero_rows=j0)
+            runs.append((out.cpu().numpy(),
+                         tk.LAUNCHES["pair_update"] - before))
+        (got, n1), (again, _), (ref, n0) = runs
+        assert (n1, n0) == (1, 0) and got.tobytes() == again.tobytes()
+        err = update_error(got[:, :ldu], got[:, ldu:], ref[:, :ldu],
+                           ref[:, ldu:], c0, dtype)
+        assert err <= UPDATE_EPS, (label, err)
+
+
+def test_pair_update_raises_on_what_the_kernel_does_not_take(cuda):
+    """Rows whose entries are not adjacent, U and W of other strides, an
+    integer or complex dtype, too many earlier columns and mismatched
+    shapes raise before anything is launched."""
+    before = dict(tk.LAUNCHES)
+    f = dict(dtype=torch.float64, device=cuda)
+    uw, bv, v, t = (torch.zeros(40, 20, **f), torch.zeros(40, 2, **f),
+                    torch.zeros(40, 2, **f), torch.eye(2, **f))
+    u_p, w_p = uw[:, :10], uw[:, 10:]
+    with pytest.raises(ValueError, match="adjacent"):
+        tk.pair_update(torch.zeros(40, 4, **f)[:, ::2], u_p, w_p, 2, v, t)
+    with pytest.raises(ValueError, match="adjacent"):
+        tk.pair_update(bv, u_p, w_p.clone(), 2, v, t)
+    with pytest.raises(TypeError, match="dtype"):
+        tk.pair_update(bv.int(), u_p, w_p, 2, v, t)
+    with pytest.raises(NotImplementedError):
+        tk.pair_update(bv.to(torch.complex128), u_p, w_p, 2, v, t)
+    with pytest.raises(ValueError, match="one pair"):
+        tk.pair_update(bv, u_p, w_p, 9, v, t)
+    with pytest.raises(ValueError, match="one pair"):
+        tk.pair_update(bv, u_p, w_p, 2, v[:30], t)
+    wide = torch.zeros(40, 600, **f)
+    with pytest.raises(ValueError, match="one pair"):
+        tk.pair_update(bv, wide[:, :300], wide[:, 300:], 258, v, t)
+    assert tk.LAUNCHES == before
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_symv_lower_pair_into_a_reused_workspace(cuda, dtype):
     """The band-2 pair pass: nc = 2 into one workspace of its window group,
@@ -687,17 +831,20 @@ def test_eigen_sx_on_the_card(cuda, impl, dtype):
     """Frank n = 512: 7 band-2 panels with a trailing update and 4 WY
     blocks; rolled, 11 sub_matmul launches; windowed, 224 symv_lower pair
     calls (nc = 2), 7 rank2k_update_window and 4 sub_matmul.  Either way
-    two householder_vector a reflector pair: 7 × 32 pairs, and 32 of the
-    remainder's 33 (its 64 rows padded to 66; the last pair's pivots lie
-    past them).  The checks pass, a rerun is bitwise equal, and the CPU
-    solve agrees to 1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32."""
+    one pair_update a reflector pair, 7 × 32 and the remainder's 33 (its
+    64 rows padded to 66), one pair_reflectors a pair but that last one
+    (its pivots lie past the padded block), and no householder_vector.
+    The checks pass, a rerun is bitwise equal, and the CPU solve agrees to
+    1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32."""
     from eigenexa_tpu_torch.ops import householder
 
     n = 512
     want = ({"sub_matmul": 11, "symv_lower": 0, "rank2k_update_window": 0}
             if impl == "rolled" else
             {"sub_matmul": 4, "symv_lower": 224, "rank2k_update_window": 7})
-    want["householder_vector"] = 2 * (7 * 32 + 32)
+    want["householder_vector"] = 0
+    want["pair_reflectors"] = 7 * 32 + 32
+    want["pair_update"] = 7 * 32 + 33
     ctx = ext.eigen_init(cuda)
     a = frank(n, dtype, cuda)
     old = householder.TRD_IMPL

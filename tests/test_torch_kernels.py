@@ -128,6 +128,8 @@ def test_cpu_tensors_never_count_launches():
     tk.sub_matmul(b, p, q)
     tk.sub_matmul(b, p, q, out=b)
     tk.rank2k_update(b, p, q)
+    tk.pair_reflectors(p[:, :2], 0)
+    tk.pair_update(p[:, :2], b[:, :8], b[:, 8:16], 2, q[:, :2], b[:2, :2])
     tk.wy_apply(b, p, t(_randn(4, 8, 8)))
     tk.symv_lower(b, p[:, 0])
     tk.symv_lower(b, p[:, :2])
@@ -139,7 +141,8 @@ def test_cpu_tensors_never_count_launches():
     assert tk.LAUNCHES == before
     assert set(before) == {"sub_matmul", "symv_lower",
                            "rank2k_update_window", "sturm_bisect",
-                           "householder_vector"}
+                           "householder_vector", "pair_reflectors",
+                           "pair_update"}
 
 
 def test_wrapper_rejects_bad_operands_and_unknown_devices():
@@ -181,13 +184,17 @@ def test_build_table_binds_every_entry_point():
     bound = dict(_build.entry_points())
     # f32 and f64 of the three matmul and matvec entry points, c64 and c128
     # of the whole-matrix subtract-product; the Sturm recurrence is f64 only;
-    # the reflector in all four types
-    assert set(found) == set(bound) and len(found) == 13
+    # the reflector in all four types; the reflector pair and its update in
+    # f32 and f64
+    assert set(found) == set(bound) and len(found) == 17
     assert "eigenexa_sturm_bisect_f64" in found
     assert {"eigenexa_sub_matmul_c64", "eigenexa_sub_matmul_c128"} <= set(
         found)
     assert {f"eigenexa_householder_vector_{s}"
             for s in ("f32", "f64", "c64", "c128")} <= set(found)
+    assert {"eigenexa_pair_reflectors_f32", "eigenexa_pair_reflectors_f64",
+            "eigenexa_pair_update_f32", "eigenexa_pair_update_f64"} <= set(
+                found)
     for name, params in found.items():
         assert len(params) == len(bound[name]), name
         for param, ctype in zip(params, bound[name]):
@@ -655,7 +662,8 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("phase", ["kernel", "same_bits", "symv",
                                    "rank2k_window", "sturm",
-                                   "sturm_workers", "householder_vector"])
+                                   "sturm_workers", "householder_vector",
+                                   "pair_reflectors", "pair_update"])
 def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
     """The card script's kernel phases at small sizes on CPU tensors (the
     plain versions, nothing timed): every case builds its operands, views
@@ -677,6 +685,18 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
             cs.REFLECTOR_CASES)
         assert all(r["rerun_bitwise_equal"] and r["max_ulps"] == 0
                    and r["launches"] == 0 for r in rows)
+    elif phase == "pair_reflectors":
+        rows = cs.pair_reflector_phase(cpu, timed=False)
+        assert [(r["m"], r["dtype"]) for r in rows] == list(cs.PAIR_CASES)
+        assert all(r["rerun_bitwise_equal"] and r["max_eps"] == 0
+                   and r["launches"] == 0 for r in rows)
+    elif phase == "pair_update":
+        rows = cs.pair_update_phase(cpu, timed=False)
+        assert [(r["m"], r["c0"], r["dtype"]) for r in rows] == list(
+            cs.UPDATE_CASES)
+        assert all(r["rerun_bitwise_equal"] and r["rest_kept"]
+                   and r["max_eps_sqrt_m"] == 0 and r["launches"] == 0
+                   for r in rows)
     elif phase == "same_bits":
         rows = cs.same_bits_phase(cpu, big=264, block=64)
         assert len(rows) == 4

@@ -227,12 +227,25 @@ def test_eigen_sx_spans_a_pair_each_and_keeps_its_bits(ctx, monkeypatch,
                                                        impl):
     monkeypatch.setattr(th, "TRD_IMPL", impl)
     n = 200
-    info, _ = _spans_of(ext.eigen_sx, _sym(n), ctx)
-    assert info.spans["prd.pair"]["count"] == pairs(n)
-    assert "PRD-BLK" in info.spans and "trd.column" not in info.spans
-    assert info.spans["prd.update"]["count"] == 3     # panels at 0, 64, 128
-    assert info.spans["dc.secular"]["count"] == 2 * info.spans[
-        "dc.level"]["count"]
+    info, annotated = _spans_of(ext.eigen_sx, _sym(n), ctx)
+    spans = info.spans
+    assert spans["prd.pair"]["count"] == pairs(n)
+    for part in ("form", "reflector", "matvec", "w"):
+        assert spans[f"prd.pair.{part}"]["count"] == pairs(n)
+    # the pair's self time and its sub-spans' self times make its host time
+    parts = spans["prd.pair"]["self_s"] + sum(
+        spans[f"prd.pair.{p}"]["self_s"]
+        for p in ("form", "reflector", "matvec", "w"))
+    assert parts == pytest.approx(spans["prd.pair"]["host_s"])
+    assert "PRD-BLK" in spans and "trd.column" not in spans
+    assert spans["prd.update"]["count"] == 3     # panels at 0, 64, 128
+    assert spans["dc.secular"]["count"] == 2 * spans["dc.level"]["count"]
+    # the band-2 merges count their coordinates too: two merges a join,
+    # three levels of m = 256
+    counters = annotated.counters
+    assert counters["dc.coords"] == 2 * 3 * 256
+    assert 0 <= counters["dc.on_pole"] <= counters["dc.coords"]
+    assert 0 <= counters["dc.deflated"] < counters["dc.coords"]
 
 
 def test_eigen_h_spans_a_column_each_and_keeps_its_bits(ctx):

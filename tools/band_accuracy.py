@@ -30,9 +30,9 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-def _product_panel(band, b, nb):
+def _product_panel(b, nb):
     """``band.band2_panel`` with B·V as one two-column product."""
-    import torch
+    from eigenexa_tpu_torch.ops import kernels
 
     m = b.shape[0]
     uw = b.new_zeros((m, 2 * nb))
@@ -43,11 +43,9 @@ def _product_panel(band, b, nb):
         cols = b[:, c0:c0 + 2]
         if c0:
             cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
-        v_pair, tau0, tau1, t = band.pair_reflectors(cols[:, 0], cols[:, 1],
-                                                     c0)
-        w_p[:, c0:c0 + 2] = band._pair_update(b @ v_pair, u, w, v_pair, t)
-        u_p[:, c0:c0 + 2] = v_pair
-        tau_p[c0:c0 + 2] = torch.stack([tau0, tau1])
+        v_pair, _, t = kernels.pair_reflectors(cols, c0,
+                                               tau_out=tau_p[c0:c0 + 2])
+        kernels.pair_update(b @ v_pair, u_p, w_p, c0, v_pair, t)
     return u_p, w_p, tau_p
 
 
@@ -80,7 +78,7 @@ def main() -> int:
     rolled = band.band2_reduce(a, impl="rolled")
     out["band2_rolled"] = w_scaled(rolled.d, rolled.e1, rolled.e2)
     shipped = band.band2_panel
-    band.band2_panel = lambda b, nb: _product_panel(band, b, nb)
+    band.band2_panel = _product_panel
     try:
         red = band.band2_reduce(a, impl="rolled")
     finally:
