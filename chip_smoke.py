@@ -57,7 +57,14 @@ result line:
               4096 and 64 (f64 and f32) and 8192 (c128) at pivot 1: v, τ
               and β within 16 ULPs of the plain version, a rerun bitwise
               equal, Hᴴx = β·e_p, its call and device times beside the
-              plain version's 27 ops; then ``pair_reflectors`` on pairs of
+              plain version's 27 ops; then ``column_update`` at m = 8192
+              with 0, 1, 31 and 63 earlier columns correcting the column
+              and the windowed column (none, W zeroed before row 4096),
+              f64 and f32: W's new column within 4·√m·ε of the plain
+              version's, U's new column v's bits, a rerun bitwise equal,
+              its times beside the plain version's 19 ops, and one
+              reduction of Frank n = 8192 f64 launching it once a column;
+              then ``pair_reflectors`` on pairs of
               columns of 8192, 4096 and 66 (f64 and f32) at c0 = 0: V, τ
               and T within 16 ε of the plain version's, a rerun bitwise
               equal, V·T·Vᵀ zeroing each column below its pivot, its call
@@ -233,6 +240,13 @@ KERNELS = {
         "source": "eigenexa_tpu_torch/csrc/householder.cu",
         "replaces": "eigenexa_tpu/ops/householder.py:63 (jnp ops, not a "
                     "TPU kernel)"},
+    # no TPU kernel either: the real column's corrections of q, its w and
+    # the panel's stores are jnp ops in the panel's program; eager, some 19
+    # launches
+    "column_update": {
+        "source": "eigenexa_tpu_torch/csrc/householder.cu",
+        "replaces": "eigenexa_tpu/ops/householder.py:130 (jnp ops, not a "
+                    "TPU kernel)"},
     # no TPU kernel either: the band-2 pair's CholeskyQR2, two reflectors
     # and T are jnp ops inside each panel's program; eager, some 43 launches
     "pair_reflectors": {
@@ -295,6 +309,15 @@ def reflectors(n: int) -> int:
     return max(n - 1, 0)
 
 
+def columns(n: int, nb_f: int = NB_F) -> int:
+    """column_update launches of one real tridiagonal reduction of n,
+    rolled or windowed: one a column of every panel, the remainder's last
+    too; no remainder panel where one row is left (``ops/householder.py``).
+    A complex reduction launches none."""
+    full = _full_panels(n, nb_f) * nb_f
+    return full + (n - full if n - full > 1 else 0)
+
+
 def pairs_sx(n: int, nb_f: int = NB_F) -> int:
     """pair_reflectors launches of one band-2 reduction of n: one a
     reflector pair of every full panel, and in the remainder (its m rows
@@ -321,18 +344,20 @@ def expected_launches_windowed(n: int, nb_f: int = NB_F,
     """Launches of one eigen_s solve through the windowed reduction: one
     symv_lower per column of every full panel, one rank2k_update_window
     per full panel, one sub_matmul per WY block of the back-transform, and
-    the reduction's reflectors."""
+    the reduction's reflectors and column updates."""
     panels = _full_panels(n, nb_f)
     return _want(symv_lower=panels * nb_f, rank2k_update_window=panels,
                  sub_matmul=-(-(n - 1) // nb_b),
-                 householder_vector=reflectors(n))
+                 householder_vector=reflectors(n), column_update=columns(n))
 
 
-def expected_launches_rolled(n: int) -> dict:
-    """Launches of one rolled eigen_s (or eigen_h) solve: sub_matmul and
-    the reduction's reflectors."""
+def expected_launches_rolled(n: int, real: bool = True) -> dict:
+    """Launches of one rolled eigen_s (or, not `real`, eigen_h) solve:
+    sub_matmul, the reduction's reflectors and a real reduction's column
+    updates."""
     return _want(sub_matmul=expected_launches(n),
-                 householder_vector=reflectors(n))
+                 householder_vector=reflectors(n),
+                 column_update=columns(n) if real else 0)
 
 
 def _sx_panels(n: int, nb_f: int = NB_F) -> int:
@@ -830,6 +855,108 @@ def reflector_phase(device, timed: bool, cases=REFLECTOR_CASES):
             and launched == (2 if device.type == "cuda" else 0),
             "disagrees with its plain version, or a rerun or the launch "
             "count differs"))
+    return rows
+
+
+# the column update's rows: (m, column j, windowed, dtype): the rolled
+# column of the first panel of n = 8192 with j = 0, 1, 31 and 63 earlier
+# columns correcting it; the windowed column (no correction, W zeroed
+# before row 4096, U and W halves of one buffer)
+COLUMN_CASES = ((8192, 0, False, "float64"), (8192, 1, False, "float64"),
+                (8192, 31, False, "float64"), (8192, 63, False, "float64"),
+                (8192, 63, True, "float64"), (8192, 0, False, "float32"),
+                (8192, 63, False, "float32"), (8192, 63, True, "float32"))
+# W's column j against the plain version in √m·ε of its largest entry
+COLUMN_EPS = 4
+
+
+def column_update_phase(device, timed: bool, cases=COLUMN_CASES,
+                        n_solve: int = N_F64, nb: int = NB_F):
+    """``column_update`` against its plain version on the card: a panel of
+    `nb` columns of random entries, zero from column j on where the column
+    is corrected (as a forming panel is), B·v, v and τ.  W's column j
+    within COLUMN_EPS·√m·ε of the plain version's largest, U's column j
+    v's bits, every other entry untouched, a rerun bitwise equal, one
+    launch a call.  If `timed`, the call with its host side, the card's
+    time of a call, the plain version's two times, and the bound: U and
+    W's correcting columns, B·v and v read once, the two new columns
+    written once.  Then one eigen_s reduction (mode C) of Frank `n_solve`
+    f64 launches the update once a column (:func:`columns`) and the
+    reflector once a column but the last.  Returns one row per case."""
+    import torch
+    from eigenexa_tpu_torch import eigen_s
+    from eigenexa_tpu_torch.ops import kernels
+    from eigenexa_tpu_torch.testing import frank
+
+    gen = torch.Generator(device=device).manual_seed(2021)
+    rows = []
+    for m, j, windowed, name in cases:
+        dtype = getattr(torch, name)
+
+        def draw(*shape):
+            return torch.randn(*shape, generator=gen, dtype=dtype,
+                               device=device)
+
+        uw, bv, v, tau = draw(m, 2 * nb), draw(m), draw(m), draw(1)
+        if not windowed:
+            uw[:, j:nb] = 0
+            uw[:, nb + j:] = 0
+        kw = ({"corrections": False, "zero_rows": m // 2} if windowed
+              else {})
+
+        def call(fn, panel):
+            fn(bv, panel[:, :nb], panel[:, nb:], j, v, tau[0], **kw)
+
+        outs = []
+        for fn in (kernels.column_update, kernels.column_update,
+                   kernels._column_update_ref):
+            panel = uw.clone()
+            before = kernels.LAUNCHES["column_update"]
+            call(fn, panel)
+            outs.append((panel, kernels.LAUNCHES["column_update"] - before))
+        _sync(device)
+        (got, launched), (again, _), (ref, _) = outs
+        same = bool(torch.equal(got, again))
+        rest = [c for c in range(2 * nb) if c != nb + j]
+        kept = bool(torch.equal(got[:, rest], ref[:, rest])
+                    and torch.equal(got[:, j], v))
+        diff = float((got[:, nb + j].double()
+                      - ref[:, nb + j].double()).abs().max())
+        scale = float(ref[:, nb + j].abs().max())
+        err = diff / (torch.finfo(dtype).eps * m ** 0.5 * scale)
+        c0 = 0 if windowed else j
+        row = {"name": "column_update",
+               "case": f"m{m}_j{j}" + ("_windowed" if windowed else ""),
+               "dtype": name, "m": m, "j": j, "c0": c0, "max_abs_err": diff,
+               "max_eps_sqrt_m": err, "bound_eps_sqrt_m": COLUMN_EPS,
+               "rerun_bitwise_equal": same, "rest_kept": kept,
+               "launches": launched}
+        if timed:
+            panel = uw.clone()
+            _times(row, lambda: call(kernels.column_update, panel),
+                   lambda: call(kernels._column_update_ref, panel), None,
+                   device)
+            row["plain_device_ms"] = _device_ms(
+                lambda: call(kernels._column_update_ref, panel), device)
+            row.update(_bound(name, 2 * m * c0 + 4 * m + 1,
+                              8.0 * m * c0 + 8.0 * m))
+        rows.append(_report(
+            row, err <= COLUMN_EPS and same and kept
+            and launched == (1 if device.type == "cuda" else 0),
+            "disagrees with its plain version, touches another column, or "
+            "a rerun or the launch count differs"))
+    a = frank(n_solve, torch.float64, device)
+    _reset_launches(kernels)
+    eigen_s(a, mode="C")
+    counts = _take_launches(kernels)
+    on_card = device.type == "cuda"
+    want = {"column_update": columns(n_solve) * on_card,
+            "householder_vector": reflectors(n_solve) * on_card}
+    print(f"column_update: eigen_s mode C of Frank n={n_solve} f64 launched "
+          f"{ {k: counts[k] for k in want} } (expected {want})", flush=True)
+    if any(counts[k] != want[k] for k in want):
+        raise AssertionError(f"column_update: launches {counts} of one "
+                             f"reduction, expected {want}")
     return rows
 
 
@@ -1670,7 +1797,8 @@ def modes_phase(device, n: int = N_F64):
     sturm_path = _want()
     drivers = (("eigen_s", eigen_s, expected_launches(n),
                 _full_panels(n, NB_F),
-                {"householder_vector": reflectors(n)}),
+                {"householder_vector": reflectors(n),
+                 "column_update": columns(n)}),
                ("eigen_sx", eigen_sx,
                 expected_launches_sx(n, False)["sub_matmul"],
                 _sx_panels(n), {"pair_reflectors": pairs_sx(n),
@@ -1794,7 +1922,7 @@ def hermitian_phase(device, n: int = N_SLICE, n_modes: int = N_MODES_H):
     from eigenexa_tpu_torch.testing import frank_hermitian, frank_spectrum
 
     w_true = frank_spectrum(n, torch.float64, device)
-    want = expected_launches_rolled(n)
+    want = expected_launches_rolled(n, real=False)
     launches = {}
     for dtype in (torch.complex64, torch.complex128):
         name = _name(dtype)
@@ -1920,7 +2048,8 @@ def gev_phase(device, n: int = N_F64):
     b = designed(torch.linspace(1.0, 2.0, n, dtype=torch.float64), seed=0,
                  device=device)
     want = _want(sub_matmul=2 * expected_launches(n),
-                 householder_vector=2 * reflectors(n))
+                 householder_vector=2 * reflectors(n),
+                 column_update=2 * columns(n))
     _reset_launches(kernels)
     w1, z1, cold = eigen_gev(a, b)
     counts = [_take_launches(kernels)]
@@ -1943,7 +2072,8 @@ def gev_phase(device, n: int = N_F64):
         raise AssertionError("gev mode A failed")
     del z2
     want_n = _want(sub_matmul=expected_launches(n) + _full_panels(n, NB_F),
-                   sturm_bisect=1, householder_vector=2 * reflectors(n))
+                   sturm_bisect=1, householder_vector=2 * reflectors(n),
+                   column_update=2 * columns(n))
     _reset_launches(kernels)
     w_n, z_n, info_n = eigen_gev(a, b, mode="N")
     counts_n = _take_launches(kernels)
@@ -2003,7 +2133,8 @@ def dist_launches(driver: str, n: int, mode: str, shape, rank: int) -> dict:
     if driver == "ind":
         solves = len(range(rank, K_DIST, shape[0] * shape[1]))
         return _want(sub_matmul=expected_launches(n) * solves,
-                     householder_vector=reflectors(n) * solves)
+                     householder_vector=reflectors(n) * solves,
+                     column_update=columns(n) * solves)
     one = expected_dist_launches(n, shape)
     if driver == "gev":
         return _want(sub_matmul=one + expected_dist_launches(
@@ -2680,6 +2811,7 @@ def _kernels_line(rows, launches, complex_launches, large_launches: int,
                  "rank2k_update_window": ("first_panel",
                                           "f64_path_first_panel"),
                  "householder_vector": ("m8192", "m8192"),
+                 "column_update": ("m8192_j63", "m8192_j63"),
                  "pair_reflectors": ("m8192", "m8192"),
                  "pair_update": ("m8192_c62", "m8192_c62")}
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -2811,6 +2943,8 @@ def _drive(device, gpu: str, host) -> int:
                (N_STURM, N_F64, True, 32, host)),
               ("householder_vector", "householder_vector", reflector_phase,
                (True,)),
+              ("column_update", "column_update", column_update_phase,
+               (True,)),
               ("pair_reflectors", "pair_reflectors", pair_reflector_phase,
                (True,)),
               ("pair_update", "pair_update", pair_update_phase, (True,)))
@@ -2859,8 +2993,11 @@ def _drive(device, gpu: str, host) -> int:
             and modes["sturm_bisect"] > 0 and gev_n["sturm_bisect"] > 0
             and bench["sturm_bisect"] > 0
             and dist["sx N gloo_2x2"]["sturm_bisect"] > 0
-            and all(counts["householder_vector"] > 0 for path, counts in paths
-                    if not path.startswith("dist ") and "sx" not in path)
+            and all(counts[name] > 0 for path, counts in paths
+                    for name in ("householder_vector", "column_update")
+                    if not path.startswith("dist ") and "sx" not in path
+                    and not (name == "column_update"
+                             and path.startswith("hermitian")))
             and all(path[name] > 0
                     for name in ("pair_reflectors", "pair_update")
                     for path in (sx_rolled, sx_windowed, large_sx, modes))):

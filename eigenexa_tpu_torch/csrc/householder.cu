@@ -10,7 +10,8 @@
 // So the card form of that function is this one kernel, one launch a
 // column, for every caller (the rolled and windowed tridiagonal reductions,
 // real and complex).  The band-2 reduction's reflector pair and its update
-// of W, further down, are the same kind of kernel for the same reason.
+// of W, and the real column's update of W, further down, are the same kind
+// of kernel for the same reason.
 //
 // What it computes is the plain version's (ops/kernels.py
 // `_householder_vector_ref`), step by step:
@@ -660,6 +661,184 @@ int launch_update(int m, int c0, int j0, const typename E::T* bv,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The tridiagonal column's W, and the column's stores, as one call of three
+// launches for f32 and f64: the pair's update above with one column for two
+// and T = [tau].  The plain version (ops/kernels.py `_column_update_ref`,
+// eigen_trd_au and eigen_trd_compute_v, src/eigen_trd_t2.F:161 and
+// src/eigen_trd_t6_3.F:85) is some 19 eager ops a column.  For the panel's
+// first c0 columns of U and W (row i of U at u[i * ldu], of W at
+// w[i * ldu]), the column's v, B.v and tau (read on the card):
+//   1. c_w = W^T v and c_u = U^T v (c0 each);
+//   2. q = B.v - U c_w - W c_u, g = v^T q;
+//   3. w = tau q - (tau tau / 2) g v, zero on the rows before `j0`; v
+//      stored as U's column j, w as W's.
+// The slabs, the fixed order of every sum and the roundings are the pair's:
+// step 1 leaves a slab's sums in `part`, step 2 adds the slabs' sums in slab
+// order, keeps q in W's column j and leaves a slab's sum of g in `gpart`,
+// step 3 adds those in slab order.  Each subtraction and each product of the
+// scalars and of step 3 rounds once, as torch's one-op kernels, so the
+// kernel agrees with the plain version to rounding.
+
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+    column_update_dots(int m, int slab, int c0,
+                       const typename E::T* __restrict__ u,
+                       const typename E::T* __restrict__ w, long long ldu,
+                       const typename E::T* __restrict__ v,
+                       typename E::T* __restrict__ part) {
+  using R = typename E::R;
+  __shared__ R sums[kWarps][32][2];  // a warp's sums of one chunk
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int first, last;
+  slab_rows(m, slab, first, last);
+  R* out = part + size_t(blockIdx.x) * c0 * 2;
+  for (int base = 0; base < c0; base += 32) {
+    const int j = base + lane;
+    R acc[2] = {R(0), R(0)};
+    for (int i0 = first + warp; i0 < last; i0 += kRowsInFlight * kWarps) {
+      R x[kRowsInFlight][3];
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r) {
+        const int i = i0 + r * kWarps;
+        const bool in = i < last && j < c0;
+        x[r][0] = in ? w[i * ldu + j] : R(0);
+        x[r][1] = in ? u[i * ldu + j] : R(0);
+        x[r][2] = in ? v[i] : R(0);
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r) {
+        acc[0] += x[r][0] * x[r][2];
+        acc[1] += x[r][1] * x[r][2];
+      }
+    }
+    sums[warp][lane][0] = acc[0];
+    sums[warp][lane][1] = acc[1];
+    __syncthreads();
+    if (threadIdx.x < 64) {
+      const int col = threadIdx.x / 2, k = threadIdx.x % 2;
+      if (base + col < c0) {
+        R total = sums[0][col][k];
+        for (int x = 1; x < kWarps; ++x) total += sums[x][col][k];
+        out[(base + col) * 2 + k] = total;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+    column_update_rows(int m, int slab, int blocks, int c0, int j,
+                       const typename E::T* __restrict__ bv,
+                       const typename E::T* u, typename E::T* w,
+                       long long ldu, const typename E::T* __restrict__ v,
+                       const typename E::T* __restrict__ part,
+                       typename E::T* __restrict__ gpart) {
+  using R = typename E::R;
+  __shared__ R partial[kWarps];
+  __shared__ R cwu[kMaxPairCols][2];  // W^T v, then U^T v, by columns
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int first, last;
+  slab_rows(m, slab, first, last);
+  for (int e = threadIdx.x; e < c0 * 2; e += kThreads) {
+    R total = part[e];
+    for (int b = 1; b < blocks; ++b) total += part[size_t(b) * c0 * 2 + e];
+    cwu[e / 2][e % 2] = total;
+  }
+  __syncthreads();
+
+  // a warp a row, its lanes over the columns, kRowsInFlight rows at a
+  // time; lane r finishes row r of them: q into W's column j for now
+  typename E::T* wo = w + j;
+  R g = R(0);
+  for (int i0 = first + warp; i0 < last; i0 += kRowsInFlight * kWarps) {
+    const int mine = i0 + lane * kWarps;  // the row this lane finishes
+    const bool finish = lane < kRowsInFlight && mine < last;
+    R s[2] = {R(0), R(0)};
+    if (c0) {
+      R a[kRowsInFlight][2];
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r) {
+        const int i = i0 + r * kWarps;
+        a[r][0] = a[r][1] = R(0);
+        if (i < last) {
+          for (int jj = lane; jj < c0; jj += 32) {
+            a[r][0] += u[i * ldu + jj] * cwu[jj][0];
+            a[r][1] += w[i * ldu + jj] * cwu[jj][1];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r)
+        for (int k = 0; k < 2; ++k) {
+          R x = a[r][k];
+          for (int mask = 16; mask > 0; mask >>= 1)
+            x += __shfl_xor_sync(0xffffffffu, x, mask);
+          s[k] = lane == r ? x : s[k];
+        }
+    }
+    if (finish) {
+      R q = bv[mine];
+      if (c0) q = E::sub_rn(E::sub_rn(q, s[0]), s[1]);
+      wo[mine * ldu] = q;
+      g += v[mine] * q;
+    }
+  }
+  g = block_reduce(g, partial, Plus());
+  if (threadIdx.x == 0) gpart[blockIdx.x] = g;
+}
+
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+    column_update_store(int m, int slab, int blocks, int j, int j0,
+                        typename E::T* u, typename E::T* w, long long ldu,
+                        const typename E::T* __restrict__ v,
+                        const typename E::T* __restrict__ tau,
+                        const typename E::T* __restrict__ gpart) {
+  using R = typename E::R;
+  R g = gpart[0];
+  for (int b = 1; b < blocks; ++b) g += gpart[b];
+  const R t = *tau;
+  // (tau tau / 2) g, each product rounded once as the plain version's
+  const R coef = E::mul_rn(E::mul_rn(E::mul_rn(t, t), R(0.5)), g);
+  typename E::T* wo = w + j;
+  typename E::T* uo = u + j;
+  int first, last;
+  slab_rows(m, slab, first, last);
+  for (int i = first + threadIdx.x; i < last; i += kThreads) {
+    const R vi = v[i];
+    const R q = wo[i * ldu];
+    wo[i * ldu] =
+        i >= j0 ? E::sub_rn(E::mul_rn(t, q), E::mul_rn(coef, vi)) : R(0);
+    uo[i * ldu] = vi;
+  }
+}
+
+template <typename E>
+int launch_column(int m, int c0, int j, int j0, const typename E::T* bv,
+                  typename E::T* u, typename E::T* w, long long ldu,
+                  const typename E::T* v, const typename E::T* tau,
+                  typename E::T* scratch, void* stream) {
+  if (m <= 0 || c0 < 0 || c0 > kMaxPairCols || c0 > j || ldu <= j ||
+      j0 < 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int slab, blocks;
+  pair_slabs(m, slab, blocks);
+  typename E::T* part = scratch;
+  typename E::T* gpart = scratch + size_t(kMaxSlabs) * c0 * 2;
+  if (c0) {
+    column_update_dots<E><<<blocks, kThreads, 0, s>>>(m, slab, c0, u, w, ldu,
+                                                      v, part);
+  }
+  column_update_rows<E><<<blocks, kThreads, 0, s>>>(
+      m, slab, blocks, c0, j, bv, u, w, ldu, v, part, gpart);
+  column_update_store<E><<<blocks, kThreads, 0, s>>>(
+      m, slab, blocks, j, j0, u, w, ldu, v, tau, gpart);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x and v: m contiguous elements; tau: one element; beta: one real.  The
@@ -730,4 +909,27 @@ extern "C" int eigenexa_pair_update_f64(int m, int c0, int j0,
                                         void* stream) {
   return launch_update<F64>(m, c0, j0, bv, ldb, u, w, ldu, v, ldv, t,
                             scratch, stream);
+}
+
+// The column's update: b_v and v m contiguous elements; the panel's U and W
+// at u and w, rows ldu apart, of which the first c0 columns correct q; tau
+// one element; scratch 64 * (2 * c0 + 1) elements.  Writes U's and W's
+// column j (c0 <= j < ldu); W's rows 0 to j0 - 1 are zero.  At most 256
+// correcting columns.  Each returns the first launch error's cudaError_t.
+extern "C" int eigenexa_column_update_f32(int m, int c0, int j, int j0,
+                                          const float* bv, float* u,
+                                          float* w, long long ldu,
+                                          const float* v, const float* tau,
+                                          float* scratch, void* stream) {
+  return launch_column<F32>(m, c0, j, j0, bv, u, w, ldu, v, tau, scratch,
+                            stream);
+}
+
+extern "C" int eigenexa_column_update_f64(int m, int c0, int j, int j0,
+                                          const double* bv, double* u,
+                                          double* w, long long ldu,
+                                          const double* v, const double* tau,
+                                          double* scratch, void* stream) {
+  return launch_column<F64>(m, c0, j, j0, bv, u, w, ldu, v, tau, scratch,
+                            stream);
 }

@@ -52,6 +52,9 @@ _ARGTYPES = {
     # (m, c0, j0, bv, ldb, u, w, ldu, v, ldv, t, scratch, stream)
     "eigenexa_pair_update": [_I, _I, _I, _P, _LD, _P, _P, _LD, _P, _LD, _P,
                              _P, _P],
+    # (m, c0, j, j0, bv, u, w, ldu, v, tau, scratch, stream)
+    "eigenexa_column_update": [_I, _I, _I, _I, _P, _P, _P, _LD, _P, _P, _P,
+                               _P],
 }
 # the dtypes each entry point is built for (the suffix of its name): f32 and
 # f64, but the Sturm recurrence, which is f64 only, and the whole-matrix

@@ -25,7 +25,10 @@ decorators and the padding of n to a multiple of TM exist only for XLA and
 the Pallas grid and are not ported.
 
 Both take each column's reflector from ``kernels.householder_vector``
-(one launch of ``csrc/householder.cu`` on the card).
+(one launch of ``csrc/householder.cu`` on the card), and a real column's
+w with the panel's stores from ``kernels.column_update`` (one call of the
+same source, three launches; the windowed matvec having applied the
+corrections, two).
 
 The panel recurrence reads the trailing block as it stood at panel start
 and corrects each column with the in-panel U and W; the in-place update
@@ -45,7 +48,9 @@ from typing import NamedTuple
 
 import torch
 
-from eigenexa_tpu_torch.ops.kernels import (WIN_TM, householder_vector,
+from eigenexa_tpu_torch.ops.kernels import (WIN_TM, column_update,
+                                            column_update_scratch,
+                                            householder_vector,
                                             rank2k_update,
                                             rank2k_update_window, symv_lower,
                                             symv_workspace, wy_apply)
@@ -83,10 +88,32 @@ class TridiagResult(NamedTuple):
     tau: torch.Tensor   # (n,) reflector scales (tau[k]=0 -> identity)
 
 
-def _panel_body(j: int, b, u_p, w_p, tau_p, e_p):
+def _panel_body(j: int, b, u_p, w_p, tau_p, e_p, scratch=None):
     """One column of the [dz]latrd-style panel recurrence, in place on the
     panel buffers.  b is the (frozen) trailing block at panel start.  Its
-    spans: form, reflector, matvec, w (the column's four steps)."""
+    spans: form, reflector, matvec, w (the column's four steps).
+
+    A real column writes τ and β straight into the panel and takes w from
+    ``kernels.column_update`` (one call on the card, into the panel's
+    ``scratch``), after the one trailing product B·v; a complex column
+    takes the steps op by op."""
+    if b.is_complex():
+        return _panel_body_complex(j, b, u_p, w_p, tau_p, e_p)
+    with span("trd.column.form"):
+        col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
+    with span("trd.column.reflector"):
+        v, tau, _ = householder_vector(col, j + 1, tau_out=tau_p[j],
+                                       beta_out=e_p[j])
+    # B·v (reference: eigen_trd_au, src/eigen_trd_t2.F:161); the panel's
+    # corrections follow inside column_update
+    with span("trd.column.matvec"):
+        b_v = b @ v
+    with span("trd.column.w"):
+        column_update(b_v, u_p, w_p, j, v, tau, scratch=scratch)
+
+
+def _panel_body_complex(j: int, b, u_p, w_p, tau_p, e_p):
+    """``_panel_body`` of a complex (Hermitian) column, op by op."""
     # the column as updated by the previous in-panel rank-2 updates:
     # A_cur[:, j] = B[:, j] − U·conj(W[j]) − W·conj(U[j])
     with span("trd.column.form"):
@@ -117,9 +144,10 @@ def tridiag_panel(b: torch.Tensor, nb: int):
     w_p = b.new_zeros((m, nb))
     tau_p = b.new_zeros((nb,))
     e_p = b.real.new_zeros((nb,))
+    scratch = None if b.is_complex() else column_update_scratch(u_p)
     for j in range(nb):
         with span("trd.column"):
-            _panel_body(j, b, u_p, w_p, tau_p, e_p)
+            _panel_body(j, b, u_p, w_p, tau_p, e_p, scratch)
     return u_p, w_p, tau_p, e_p
 
 
@@ -200,24 +228,23 @@ def _panel_win(b: torch.Tensor, j0: int, t0: int, nb: int, ws: dict):
     u_p, w_p = uw[:, :nb], uw[:, nb:]
     tau_p = b.new_zeros((nb,))
     e_p = b.new_zeros((nb,))
+    scratch = column_update_scratch(u_p)
     for jc in range(nb):
         j = j0 + jc
         with span("trd.column"):
             with span("trd.column.form"):
                 col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
             with span("trd.column.reflector"):
-                v, tau, beta = householder_vector(col, j + 1)
+                v, tau, _ = householder_vector(col, j + 1,
+                                               tau_out=tau_p[jc],
+                                               beta_out=e_p[jc])
             # q = A_cur·v: the window's matvec less the panel's first jc
             # columns' corrections (U and W are zero above j0 >= t0·TM)
             with span("trd.column.matvec"):
                 q = symv_lower(b, v, t0=t0, panel=uw, nb=jc, **ws)
             with span("trd.column.w"):
-                w = tau * q - (tau * tau * 0.5) * torch.dot(v, q) * v
-                w[:j0] = 0
-                u_p[:, jc] = v
-                w_p[:, jc] = w
-                tau_p[jc] = tau
-                e_p[jc] = beta
+                column_update(q, u_p, w_p, jc, v, tau, corrections=False,
+                              zero_rows=j0, scratch=scratch)
     return u_p, w_p, tau_p, e_p
 
 

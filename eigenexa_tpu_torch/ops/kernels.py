@@ -1,6 +1,6 @@
 """The port's kernel wrappers: ``sub_matmul``, ``symv_lower``,
 ``rank2k_update_window``, ``sturm_bisect``, ``householder_vector``,
-``pair_reflectors`` and ``pair_update``.
+``column_update``, ``pair_reflectors`` and ``pair_update``.
 
 Counterpart of ``eigenexa_tpu/ops/pallas_kernels.py``.  Each kernel is
 hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
@@ -28,6 +28,10 @@ hand-written CUDA for Hopper under ``csrc/`` (``sub_matmul.cu``,
 * ``householder_vector``: the reflector of one column (dlarfg, zlarfg) in
   one launch, where its jnp form, which XLA fuses inside the panel's
   program, is some 27 eager ops.  No TPU kernel's port either;
+* ``column_update``: the real tridiagonal column's W after its trailing
+  matvec, the panel's corrections of q, w and the column's stores into
+  the panel, one call of three launches for some 19 eager ops.  No TPU
+  kernel's port either;
 * ``pair_reflectors``: the band-2 reduction's reflector pair (CholeskyQR2
   of two columns, their two reflectors and the 2×2 T) in one launch,
   where its eager form is some 43 ops; ``pair_update``: the pair's two
@@ -42,8 +46,9 @@ Dispatch is by device, never by a fallback:
 
 * a CPU tensor takes the plain version (``_sub_matmul_ref``,
   ``_symv_lower_ref``, ``_rank2k_window_ref``, ``_sturm_bisect_ref``,
-  ``_householder_vector_ref``, ``_pair_reflectors_ref``,
-  ``_pair_update_ref``); the parity tests and the CPU solver run it;
+  ``_householder_vector_ref``, ``_column_update_ref``,
+  ``_pair_reflectors_ref``, ``_pair_update_ref``); the parity tests and
+  the CPU solver run it;
 * a CUDA tensor launches the kernel, or raises on what the kernel does not
   take (other dtypes, complex but for ``sub_matmul`` and
   ``householder_vector``, non-unit column stride, bad aliasing, more than
@@ -66,8 +71,8 @@ import torch
 from eigenexa_tpu_torch.ops._build import load_library
 
 LAUNCHES = {"sub_matmul": 0, "symv_lower": 0, "rank2k_update_window": 0,
-            "sturm_bisect": 0, "householder_vector": 0, "pair_reflectors": 0,
-            "pair_update": 0}
+            "sturm_bisect": 0, "householder_vector": 0, "column_update": 0,
+            "pair_reflectors": 0, "pair_update": 0}
 
 WIN_TM = 512       # window granularity TM of the windowed reduction
 SYMV_MAX_NC = 8    # most vectors one symv_lower call takes
@@ -237,7 +242,8 @@ def _householder_vector_ref(x: torch.Tensor, p: int):
     return v, tau, torch.where(active, beta, alphr)
 
 
-def householder_vector(x: torch.Tensor, p: int):
+def householder_vector(x: torch.Tensor, p: int, tau_out=None,
+                       beta_out=None):
     """dlarfg/zlarfg analogue: the reflector (v, tau, beta) that maps x[p:]
     onto beta·e_p, annihilating x[p+1:] below the pivot alpha = x[p].
 
@@ -250,7 +256,10 @@ def householder_vector(x: torch.Tensor, p: int):
     (so an empty tail still yields the phase rotation of the last
     sub-diagonal).  The tail is pre-scaled by its max-abs before the norm
     (dlarfg's rescaling), so ‖x‖² cannot overflow or underflow in f32.
-    tau and beta are 0-d tensors on x's device.
+    tau and beta are 0-d tensors on x's device; where ``tau_out`` or
+    ``beta_out`` (one element each, of x's dtype and its real dtype, on x's
+    device: a panel's slots) is given, the value is written there and it is
+    returned.
 
     x: (m,), f32, f64, c64 or c128.  A CPU tensor, and a pivot past the end
     (p ≥ m: no reflector, nothing launched), take the plain version; a CUDA
@@ -260,7 +269,12 @@ def householder_vector(x: torch.Tensor, p: int):
     """
     m = x.shape[0]
     if p >= m or x.device.type == "cpu":
-        return _householder_vector_ref(x, p)
+        v, tau, beta = _householder_vector_ref(x, p)
+        if tau_out is not None:
+            tau = tau_out.copy_(tau)
+        if beta_out is not None:
+            beta = beta_out.copy_(beta)
+        return v, tau, beta
     _check_kernel_dtype("householder_vector", x, complex_ok=True)
     if x.ndim != 1 or p < 0:
         raise ValueError(f"householder_vector: x{tuple(x.shape)} and p = {p} "
@@ -273,8 +287,8 @@ def householder_vector(x: torch.Tensor, p: int):
         raise ValueError("householder_vector: x carries a lazy conjugate; "
                          "pass it through resolve_conj()")
     v = torch.empty((m,), dtype=x.dtype, device=x.device)
-    tau = torch.empty((), dtype=x.dtype, device=x.device)
-    beta = torch.empty((), dtype=x.dtype.to_real(), device=x.device)
+    tau = _scalar_out(tau_out, x.dtype, x.device, "tau_out")
+    beta = _scalar_out(beta_out, x.dtype.to_real(), x.device, "beta_out")
     fn = getattr(load_library(),
                  "eigenexa_householder_vector_" + _SUFFIX[x.dtype])
     args = (m, p, x.data_ptr(), v.data_ptr(), tau.data_ptr(),
@@ -288,6 +302,17 @@ def householder_vector(x: torch.Tensor, p: int):
     _raise_on(err, "householder_vector")
     LAUNCHES["householder_vector"] += 1
     return v, tau, beta
+
+
+def _scalar_out(out, dtype, device, name: str):
+    """A new 0-d tensor, or ``out`` where it is one element of ``dtype`` on
+    ``device``."""
+    if out is None:
+        return torch.empty((), dtype=dtype, device=device)
+    if out.numel() != 1 or out.dtype != dtype or out.device != device:
+        raise ValueError(f"householder_vector: {name} must be one element "
+                         f"of {dtype} on {device}")
+    return out
 
 
 def _pair_reflectors_ref(x: torch.Tensor, c0: int, tau_out=None):
@@ -377,7 +402,7 @@ def pair_reflectors(x: torch.Tensor, c0: int, tau_out=None):
 
 
 PAIR_UPDATE_MAX_COLS = 256   # most earlier columns pair_update takes
-_PAIR_UPDATE_SLABS = 64      # most row slabs of csrc/householder.cu's
+_UPDATE_SLABS = 64           # most row slabs of csrc/householder.cu's updates
 
 
 def _pair_update_ref(b_v, u_p, w_p, c0: int, v, t, zero_rows: int = 0):
@@ -433,7 +458,7 @@ def pair_update(b_v, u_p, w_p, c0: int, v, t, zero_rows: int = 0) -> None:
         raise ValueError("pair_update: every row's entries must be "
                          "adjacent, and u_p's rows w_p's stride apart")
     # the slabs' partial sums of Wᵀ·V, Uᵀ·V and Vᵀ·P
-    scratch = torch.empty((_PAIR_UPDATE_SLABS * (4 * c0 + 4),),
+    scratch = torch.empty((_UPDATE_SLABS * (4 * c0 + 4),),
                           dtype=b_v.dtype, device=b_v.device)
     fn = getattr(load_library(), "eigenexa_pair_update_" + _SUFFIX[b_v.dtype])
     args = (m, c0, zero_rows, b_v.data_ptr(), b_v.stride(0),
@@ -447,6 +472,110 @@ def pair_update(b_v, u_p, w_p, c0: int, v, t, zero_rows: int = 0) -> None:
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "pair_update")
     LAUNCHES["pair_update"] += 1
+
+
+COLUMN_UPDATE_MAX_COLS = 256  # most correcting columns column_update takes
+_COLUMN_UPDATE = {}           # dtype: its entry point, looked up once
+
+
+def column_update_scratch(u_p):
+    """The slabs' partial sums for :func:`column_update` calls on a panel
+    as wide as ``u_p``, made once a panel; empty on the CPU, whose plain
+    version needs none."""
+    cols = min(u_p.shape[1], COLUMN_UPDATE_MAX_COLS)
+    numel = (0 if u_p.device.type == "cpu"
+             else _UPDATE_SLABS * (2 * cols + 1))
+    return u_p.new_empty((numel,))
+
+
+def _column_update_ref(b_v, u_p, w_p, j: int, v, tau,
+                       corrections: bool = True, zero_rows: int = 0):
+    """Plain PyTorch version of :func:`column_update`, op by op: the panel
+    body's own ops, the corrections over the whole panel."""
+    q = (b_v - u_p @ (w_p.T @ v) - w_p @ (u_p.T @ v) if corrections
+         else b_v)
+    w = tau * q - (tau * tau * 0.5) * torch.dot(v, q) * v
+    if zero_rows:
+        w[:zero_rows] = 0
+    u_p[:, j] = v
+    w_p[:, j] = w
+
+
+def column_update(b_v, u_p, w_p, j: int, v, tau, *, corrections=True,
+                  zero_rows: int = 0, scratch=None) -> None:
+    """The tridiagonal column's w after its trailing matvec b_v = B·v:
+    q = b_v − U·(Wᵀv) − W·(Uᵀv) over the panel's first j columns (where
+    ``corrections``; else q = b_v, the windowed matvec having applied
+    them), then w = τq − ½τ²(vᵀq)·v so that Hᵀ·A·H = A − v·wᵀ − w·vᵀ
+    (reference: eigen_trd_au, src/eigen_trd_t2.F:161; eigen_trd_compute_v,
+    src/eigen_trd_t6_3.F:85), stored with v as column j of ``w_p`` and
+    ``u_p``.  W's rows before ``zero_rows`` are set to zero (the windowed
+    frame's stale rows).  With ``corrections`` the panel's columns from j
+    on must still be zero, as they are while a panel is formed: the plain
+    version's products run over the whole panel.
+
+    b_v, v: (m,); u_p, w_p: (m, > j), one row stride; tau: one element,
+    read on the card; f32 or f64.  ``scratch`` (see
+    :func:`column_update_scratch`) is the slabs' partial sums; left out, a
+    call makes its own.  A CPU tensor takes the plain version; a CUDA
+    tensor calls ``csrc/householder.cu`` once (three launches over slabs
+    of the rows, two at no correction), which agrees with the plain
+    version to rounding (its sums run in another, fixed, order), or raises
+    on complex input, another dtype, a non-unit stride or more than
+    ``COLUMN_UPDATE_MAX_COLS`` correcting columns.
+    """
+    if b_v.device.type == "cpu":
+        return _column_update_ref(b_v, u_p, w_p, j, v, tau, corrections,
+                                  zero_rows)
+    fn = _COLUMN_UPDATE.get(b_v.dtype) if b_v.is_cuda else None
+    if fn is None:
+        _check_kernel_dtype("column_update", b_v)
+        fn = _COLUMN_UPDATE[b_v.dtype] = getattr(
+            load_library(), "eigenexa_column_update_" + _SUFFIX[b_v.dtype])
+    # the checks are written for a column's host time: each attribute is
+    # read once
+    m = b_v.shape[0]
+    c0 = j if corrections else 0
+    dtype, device = b_v.dtype, b_v.device
+    shape = u_p.shape
+    if (b_v.dim() != 1 or v.shape != b_v.shape or len(shape) != 2
+            or w_p.shape != shape or shape[0] != m
+            or not 0 <= j < shape[1] or c0 > COLUMN_UPDATE_MAX_COLS
+            or zero_rows < 0 or tau.numel() != 1):
+        raise ValueError(f"column_update: b_v{tuple(b_v.shape)}, "
+                         f"u_p{tuple(shape)}, w_p{tuple(w_p.shape)}, "
+                         f"v{tuple(v.shape)}, tau{tuple(tau.shape)} and "
+                         f"j = {j} are not one column of one panel")
+    if (u_p.dtype != dtype or w_p.dtype != dtype or v.dtype != dtype
+            or tau.dtype != dtype or u_p.device != device
+            or w_p.device != device or v.device != device
+            or tau.device != device):
+        raise ValueError("column_update: operands of different dtypes or "
+                         "devices")
+    ldu, unit = u_p.stride()
+    if (unit != 1 or w_p.stride() != (ldu, 1) or ldu < shape[1]
+            or (m > 1 and (b_v.stride(0) != 1 or v.stride(0) != 1))):
+        raise ValueError("column_update: b_v and v need unit stride, a "
+                         "row's entries of u_p and w_p adjacent and their "
+                         "rows one stride apart")
+    need = _UPDATE_SLABS * (2 * c0 + 1)
+    if scratch is None:
+        scratch = torch.empty((need,), dtype=dtype, device=device)
+    elif (scratch.numel() < need or scratch.dtype != dtype
+          or scratch.device != device):
+        raise ValueError(f"column_update: scratch must hold {need} "
+                         f"elements of {dtype} on {device}")
+    args = (m, c0, j, zero_rows, b_v.data_ptr(), u_p.data_ptr(),
+            w_p.data_ptr(), ldu, v.data_ptr(), tau.data_ptr(),
+            scratch.data_ptr())
+    # the device guard is entered only where the card is not current
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "column_update")
+    LAUNCHES["column_update"] += 1
 
 
 # ---------------------------------------------------------------------------

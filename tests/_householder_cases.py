@@ -1,8 +1,32 @@
-"""Cases and measures of the column's reflector, ``householder_vector``,
-shared by its CPU tests (the emulated kernel) and its card tests; no JAX."""
+"""Cases and measures of the kernels of ``csrc/householder.cu`` (the
+column's reflector, the band-2 pair's reflectors and update, the column's
+update), shared by their CPU tests (the emulated kernels) and their card
+tests, and the source's rewrite for the stand-in runtime; no JAX."""
+
+import re
 
 import numpy as np
 import torch
+
+
+def emulated(src: str) -> str:
+    """csrc/householder.cu with each kernel's launches (every type)
+    rewritten for the stand-in runtime of tests/cuda_emu."""
+    for kernel in ("householder_vector_kernel", "pair_reflectors_kernel"):
+        src, count = re.subn(
+            rf"({kernel}<E>)<<<1, kThreads, 0,\s*"
+            r"static_cast<cudaStream_t>\(stream\)>>>\(\s*",
+            r"emu_launch(\1, 1, kThreads, ", src)
+        assert count == 1, kernel
+    # the pair's and the column's updates, three launches each over the
+    # slabs
+    for kernel in ("pair_update", "column_update"):
+        src, count = re.subn(rf"({kernel}_\w+<E>)<<<blocks, kThreads, 0, "
+                             r"s>>>\(\s*",
+                             r"emu_launch(\1, blocks, kThreads, ", src)
+        assert count == 3, kernel
+    return src
+
 
 NP = {torch.float32: np.float32, torch.float64: np.float64,
       torch.complex64: np.complex64, torch.complex128: np.complex128}
@@ -206,6 +230,64 @@ def update_error(u, w, ref_u, ref_w, c0: int, dtype) -> float:
             or w[:, rest].tobytes() != ref_w[:, rest].tobytes()):
         return np.inf
     got, ref = w[:, new].astype(np.float64), ref_w[:, new].astype(np.float64)
+    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+        return np.inf
+    diff = np.abs(got - ref).max(initial=0.0)
+    if diff == 0:
+        return 0.0
+    return float(diff) / (float(torch.finfo(dtype).eps) * got.shape[0] ** 0.5
+                          * float(np.abs(ref).max()))
+
+
+# the tridiagonal column's update, ``column_update``
+
+def column_cases(dtype, ms=(5, 66, 1000), js=(0, 1, 30, 63), big_js=None):
+    """(label, m, c0, j, j0, ldu, b_v, u, w, v, tau) of the column update's
+    checks: at each m, panels of 64 columns whose column j is the one
+    being formed, corrected by the c0 = j before it (the rolled column:
+    the columns from j on zero), W zeroed before row j0 = 0 or m // 3
+    (past 100 rows only the j of `big_js`, by default the first and last
+    of `js`: j = 0 and 63 take no chunk and two); then a
+    windowed column, c0 = 0 at j = 5 with every other column of U and W
+    random; at m = 40 the most correcting columns the kernel takes (256);
+    a zero B·v; τ = 0 with v = 0 (the remainder's last column).  U and W
+    have two columns of padding past the panel's."""
+    g = np.random.default_rng(29)
+    out = []
+
+    def case(label, m, c0, j, j0, ldu, rest=False):
+        u, w = g.standard_normal((m, ldu)), g.standard_normal((m, ldu))
+        if not rest:
+            u[:, j:] = 0
+            w[:, j:] = 0
+        return (label, m, c0, j, j0, ldu, g.standard_normal(m), u, w,
+                g.standard_normal(m), g.standard_normal(1))
+
+    for m in ms:
+        for j in js if m <= 100 else (big_js or (js[0], js[-1])):
+            for j0 in sorted({0, m // 3}):
+                out.append(case(f"m{m}_j{j}_j0{j0}", m, j, j, j0, 66))
+        out.append(case(f"m{m}_windowed", m, 0, 5, m // 3, 66, rest=True))
+    out.append(case("widest", 40, 256, 256, 0, 260))
+    zero = case("zero_bv", 66, 30, 30, 0, 66)
+    out.append(zero[:6] + (np.zeros(66),) + zero[7:])
+    last = case("tau_0", 66, 63, 63, 0, 66)
+    out.append(last[:9] + (np.zeros(66), np.zeros(1)))
+    return out
+
+
+def column_error(u, w, ref_u, ref_w, j: int, dtype) -> float:
+    """The distance of the kernel's panel (u, w) from the plain version's:
+    W's column j in √m·ε of the largest entry of the plain version's (vᵀq
+    sums over the m rows), and infinity where U's column j or any other
+    entry of U or W differ in a bit."""
+    u, w, ref_u, ref_w = (np.asarray(a) for a in (u, w, ref_u, ref_w))
+    rest = np.ones(w.shape[1], bool)
+    rest[j] = False
+    if (u.tobytes() != ref_u.tobytes()
+            or w[:, rest].tobytes() != ref_w[:, rest].tobytes()):
+        return np.inf
+    got, ref = w[:, j].astype(np.float64), ref_w[:, j].astype(np.float64)
     if not (np.isfinite(got).all() and np.isfinite(ref).all()):
         return np.inf
     diff = np.abs(got - ref).max(initial=0.0)

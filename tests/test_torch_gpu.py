@@ -331,8 +331,9 @@ def test_windowed_eigen_s_on_the_card(cuda):
     """Frank n=1300 f32 through the windowed reduction: 20 full panels
     (1280 symv_lower, 20 rank2k_update_window launches; the window moves to
     t0 = 1 and 2), a 20-column remainder, 11 WY blocks through sub_matmul,
-    and one householder_vector a column with a pivot inside the matrix,
-    n − 1.  n is no multiple of TM nor of the kernels' tiles."""
+    one householder_vector a column with a pivot inside the matrix, n − 1,
+    and one column_update a column, n.  n is no multiple of TM nor of the
+    kernels' tiles."""
     from eigenexa_tpu_torch.ops import householder
 
     n = 1300
@@ -348,6 +349,7 @@ def test_windowed_eigen_s_on_the_card(cuda):
                                "rank2k_update_window": 20, "sub_matmul": 11,
                                "sturm_bisect": 0,
                                "householder_vector": n - 1,
+                               "column_update": n,
                                "pair_reflectors": 0, "pair_update": 0}
         w2, z2, _ = ext.eigen_s(a, ctx=ctx)
     finally:
@@ -364,8 +366,9 @@ def test_windowed_eigen_s_on_the_card(cuda):
 def test_windowed_eigen_s_f64_on_the_card(cuda):
     """Frank n=1100 f64 through the windowed reduction: 17 full panels
     (1088 symv_lower, 17 rank2k_update_window launches; the window reaches
-    t0 = 2), 9 WY blocks, n − 1 reflectors; every f64 launch of the four
-    kernels on one solve.  Checks pass and a rerun is bitwise equal."""
+    t0 = 2), 9 WY blocks, n − 1 reflectors, n column updates; every f64
+    launch of the five kernels on one solve.  Checks pass and a rerun is
+    bitwise equal."""
     from eigenexa_tpu_torch.ops import householder
     from eigenexa_tpu_torch.testing import eigenvalue_check, frank_spectrum
 
@@ -382,6 +385,7 @@ def test_windowed_eigen_s_f64_on_the_card(cuda):
                                "rank2k_update_window": 17, "sub_matmul": 9,
                                "sturm_bisect": 0,
                                "householder_vector": n - 1,
+                               "column_update": n,
                                "pair_reflectors": 0, "pair_update": 0}
         w2, z2, _ = ext.eigen_s(a, ctx=ctx)
     finally:
@@ -398,7 +402,8 @@ def test_windowed_eigen_s_f64_on_the_card(cuda):
 def test_eigen_s_on_the_card(cuda, dtype):
     """Frank n=300: 4 TRD panels with a trailing block and 3 WY blocks
     launch sub_matmul 7 times, and the rolled reduction householder_vector
-    n − 1 times (the last column's pivot lies past the matrix); the solve
+    n − 1 times (the last column's pivot lies past the matrix) and
+    column_update n times, the last column's too; the solve
     passes the reference's checks, repeats bitwise, and agrees with the
     CPU solve (plain versions) to 1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32 (the
     f32 reductions round in another order)."""
@@ -410,6 +415,7 @@ def test_eigen_s_on_the_card(cuda, dtype):
     assert tk.LAUNCHES["sub_matmul"] == before["sub_matmul"] + 7
     assert tk.LAUNCHES["householder_vector"] == (
         before["householder_vector"] + n - 1)
+    assert tk.LAUNCHES["column_update"] == before["column_update"] + n
     assert w.device.type == "cuda" and z.dtype == dtype
     assert residual_check(a, z, w).passed
     assert orthogonality_check(z).passed
@@ -438,6 +444,8 @@ def test_eigen_h_on_the_card(cuda, dtype):
     # phase rotation (an empty tail) included
     assert tk.LAUNCHES["householder_vector"] == (
         before["householder_vector"] + 299)
+    # a complex column takes its steps op by op
+    assert tk.LAUNCHES["column_update"] == before["column_update"]
     assert z.device.type == "cuda" and z.dtype == dtype
     assert residual_check(a, z, w).passed
     assert orthogonality_check(z).passed
@@ -662,6 +670,130 @@ def test_householder_vector_raises_on_what_the_kernel_does_not_take(cuda):
     assert tk.LAUNCHES["householder_vector"] == before
 
 
+@pytest.mark.parametrize("dtype", DTYPES + CDTYPES)
+def test_householder_vector_writes_the_returned_bits_into_tau_out(cuda,
+                                                                  dtype):
+    """With ``tau_out`` and ``beta_out`` (one slot each of a panel's τ and
+    e) the kernel writes there the bits it returns without them, leaves
+    the neighbouring slots alone, returns the slots and launches once; a
+    pivot past the end writes the plain version's zeros."""
+    from _householder_cases import reflector_cases
+
+    def bits(x):
+        return x.cpu().numpy().tobytes()
+
+    for _, m, p, x in reflector_cases(dtype, ms=(65, 8192)):
+        xt = torch.as_tensor(x, dtype=dtype, device=cuda)
+        v, tau, beta = tk.householder_vector(xt, p)
+        taus = torch.full((3,), float("nan"), dtype=dtype, device=cuda)
+        betas = torch.full((3,), float("nan"), dtype=dtype.to_real(),
+                           device=cuda)
+        before = tk.LAUNCHES["householder_vector"]
+        got = tk.householder_vector(xt, p, tau_out=taus[1],
+                                    beta_out=betas[1])
+        assert tk.LAUNCHES["householder_vector"] == before + 1
+        assert got[1].data_ptr() == taus[1].data_ptr()
+        assert got[2].data_ptr() == betas[1].data_ptr()
+        assert bits(got[0]) == bits(v)
+        assert bits(taus[1]) == bits(tau) and bits(betas[1]) == bits(beta)
+        assert bool(taus[::2].isnan().all() and betas[::2].isnan().all())
+    taus = torch.full((2,), 5.0, dtype=dtype, device=cuda)
+    betas = torch.full((2,), 5.0, dtype=dtype.to_real(), device=cuda)
+    tk.householder_vector(xt, xt.shape[0], tau_out=taus[0],
+                          beta_out=betas[0])
+    assert float(taus[0].abs()) == 0 and float(betas[0]) == 0
+    assert float(taus[1].abs()) == 5 and float(betas[1]) == 5
+    with pytest.raises(ValueError, match="tau_out"):
+        tk.householder_vector(xt, 3, tau_out=taus)
+    with pytest.raises(ValueError, match="beta_out"):
+        tk.householder_vector(xt, 3, beta_out=betas[0].to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the real column's update of W
+# ---------------------------------------------------------------------------
+
+# W's column j against the plain version on the same card tensors, in √m·ε
+# of its largest entry: the sums over the panel's columns and the m rows
+# run in other orders
+COLUMN_EPS = 4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [8192, 4096, 130, 2])
+def test_column_update_matches_plain(cuda, dtype, m):
+    """The column's kernels against ``_column_update_ref`` on the cases of
+    ``column_cases`` of m rows with j = 0, 1 and 63 (the rolled column,
+    corrected by the j before it, W zeroed before row 0 or m // 3) and the
+    windowed column (no correction), U and W halves of one panel buffer
+    and τ a slot of a panel's τ: W's column j within COLUMN_EPS, U's
+    column j v's bits, every other entry untouched, a second call (with
+    its own scratch, the first with a panel's) bitwise equal, one launch a
+    call."""
+    from _householder_cases import column_cases, column_error
+
+    for label, rows, c0, j, j0, ldu, bv, u, w, v, tau in column_cases(
+            dtype, ms=(m,), js=(0, 1, 63), big_js=(0, 1, 63)):
+        if rows != m:
+            continue
+        panel = torch.as_tensor(np.concatenate([u, w], axis=1), dtype=dtype,
+                                device=cuda)
+        bvt, vt = (torch.as_tensor(a, dtype=dtype, device=cuda)
+                   for a in (bv, v))
+        taus = torch.zeros(3, dtype=dtype, device=cuda)
+        taus[1] = float(tau[0])
+        scratch = tk.column_update_scratch(panel[:, :ldu])
+        runs = []
+        for fn, kw in ((tk.column_update, {"scratch": scratch}),
+                       (tk.column_update, {}), (tk._column_update_ref, {})):
+            out = panel.clone()
+            before = tk.LAUNCHES["column_update"]
+            fn(bvt, out[:, :ldu], out[:, ldu:], j, vt, taus[1],
+               corrections=c0 == j, zero_rows=j0, **kw)
+            runs.append((out.cpu().numpy(),
+                         tk.LAUNCHES["column_update"] - before))
+        (got, n1), (again, _), (ref, n0) = runs
+        assert (n1, n0) == (1, 0) and got.tobytes() == again.tobytes()
+        err = column_error(got[:, :ldu], got[:, ldu:], ref[:, :ldu],
+                           ref[:, ldu:], j, dtype)
+        assert err <= COLUMN_EPS, (label, err)
+
+
+def test_column_update_raises_on_what_the_kernel_does_not_take(cuda):
+    """A strided b_v or v, U and W of other row strides, an integer or
+    complex dtype, operands of two dtypes, a column outside the panel,
+    more correcting columns than the kernel takes and a short scratch
+    raise before anything is launched."""
+    before = dict(tk.LAUNCHES)
+    f = dict(dtype=torch.float64, device=cuda)
+    uw, bv, v, tau = (torch.zeros(40, 20, **f), torch.zeros(40, **f),
+                      torch.zeros(40, **f), torch.ones(1, **f)[0])
+    u_p, w_p = uw[:, :10], uw[:, 10:]
+    with pytest.raises(ValueError, match="stride"):
+        tk.column_update(torch.zeros(80, **f)[::2], u_p, w_p, 2, v, tau)
+    with pytest.raises(ValueError, match="stride"):
+        tk.column_update(bv, u_p, w_p, 2, torch.zeros(80, **f)[::2], tau)
+    with pytest.raises(ValueError, match="stride"):
+        tk.column_update(bv, u_p, w_p.clone(), 2, v, tau)
+    with pytest.raises(TypeError, match="dtype"):
+        tk.column_update(bv.int(), u_p, w_p, 2, v, tau)
+    with pytest.raises(NotImplementedError):
+        tk.column_update(bv.to(torch.complex128), u_p, w_p, 2, v, tau)
+    with pytest.raises(ValueError, match="dtypes"):
+        tk.column_update(bv, u_p, w_p, 2, v.float(), tau)
+    with pytest.raises(ValueError, match="one column"):
+        tk.column_update(bv, u_p, w_p, 10, v, tau)
+    with pytest.raises(ValueError, match="one column"):
+        tk.column_update(bv, u_p, w_p, 2, v[:30], tau)
+    wide = torch.zeros(40, 600, **f)
+    with pytest.raises(ValueError, match="one column"):
+        tk.column_update(bv, wide[:, :300], wide[:, 300:], 257, v, tau)
+    with pytest.raises(ValueError, match="scratch"):
+        tk.column_update(bv, u_p, w_p, 2, v, tau,
+                         scratch=torch.zeros(3, **f))
+    assert tk.LAUNCHES == before
+
+
 # ---------------------------------------------------------------------------
 # the band-2 reflector pair
 # ---------------------------------------------------------------------------
@@ -833,7 +965,8 @@ def test_eigen_sx_on_the_card(cuda, impl, dtype):
     calls (nc = 2), 7 rank2k_update_window and 4 sub_matmul.  Either way
     one pair_update a reflector pair, 7 × 32 and the remainder's 33 (its
     64 rows padded to 66), one pair_reflectors a pair but that last one
-    (its pivots lie past the padded block), and no householder_vector.
+    (its pivots lie past the padded block), and no householder_vector or
+    column_update.
     The checks pass, a rerun is bitwise equal, and the CPU solve agrees to
     1e-12·‖A‖ in f64, 1e-4·‖A‖ in f32."""
     from eigenexa_tpu_torch.ops import householder
@@ -842,7 +975,7 @@ def test_eigen_sx_on_the_card(cuda, impl, dtype):
     want = ({"sub_matmul": 11, "symv_lower": 0, "rank2k_update_window": 0}
             if impl == "rolled" else
             {"sub_matmul": 4, "symv_lower": 224, "rank2k_update_window": 7})
-    want["householder_vector"] = 0
+    want["householder_vector"] = want["column_update"] = 0
     want["pair_reflectors"] = 7 * 32 + 32
     want["pair_update"] = 7 * 32 + 33
     ctx = ext.eigen_init(cuda)

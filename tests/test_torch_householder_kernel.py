@@ -11,7 +11,6 @@ bitwise equal.  Two broken copies must fail: one without the barrier
 between the scalars and the writes of v, one without dlarfg's pre-scale.
 """
 
-import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _householder_cases import NP, reflector_cases, ulps  # noqa: E402
+from _householder_cases import (NP, emulated, reflector_cases,  # noqa: E402
+                                ulps)
 
 from eigenexa_tpu_torch.ops import householder as th  # noqa: E402
 from eigenexa_tpu_torch.ops import kernels as tk  # noqa: E402
@@ -56,22 +56,6 @@ def test_a_cpu_tensor_takes_the_plain_version():
     assert tk.LAUNCHES["householder_vector"] == before
 
 
-def _emulated(src: str) -> str:
-    """The source with each kernel's one launch (every type) rewritten for
-    the stand-in runtime."""
-    for kernel in ("householder_vector_kernel", "pair_reflectors_kernel"):
-        src, count = re.subn(
-            rf"({kernel}<E>)<<<1, kThreads, 0,\s*"
-            r"static_cast<cudaStream_t>\(stream\)>>>\(\s*",
-            r"emu_launch(\1, 1, kThreads, ", src)
-        assert count == 1, kernel
-    # the pair update's three launches over the slabs
-    src, count = re.subn(r"(pair_update_\w+<E>)<<<blocks, kThreads, 0, s>>>"
-                         r"\(\s*", r"emu_launch(\1, blocks, kThreads, ", src)
-    assert count == 3
-    return src
-
-
 @pytest.fixture(scope="module")
 def reflector_emu(tmp_path_factory):
     """csrc/householder.cu built by the host compiler against the stand-in
@@ -89,7 +73,7 @@ def reflector_emu(tmp_path_factory):
             old, new, _ = MUTANTS[name]
             assert src.count(old) == 1, name
             src = src.replace(old, new)
-        src = _emulated(src)
+        src = emulated(src)
         d = root / (name or "source")
         d.mkdir()
         (d / "kern.cpp").write_text(src)
@@ -228,7 +212,7 @@ def pair_emu(tmp_path_factory):
             src = src.replace(old, new)
         d = root / (name or "source")
         d.mkdir()
-        (d / "kern.cpp").write_text(_emulated(src))
+        (d / "kern.cpp").write_text(emulated(src))
         procs[name] = subprocess.Popen(
             ["g++", "-std=c++20", "-O1", f"-I{emu}", f"-I{d}",
              "-Wno-unknown-pragmas", "-o", str(d / "emu"),
@@ -371,7 +355,7 @@ def update_emu(tmp_path_factory):
             src = src.replace(old, new)
         d = root / (name or "source")
         d.mkdir()
-        (d / "kern.cpp").write_text(_emulated(src))
+        (d / "kern.cpp").write_text(emulated(src))
         procs[name] = subprocess.Popen(
             ["g++", "-std=c++20", "-O1", f"-I{emu}", f"-I{d}",
              "-Wno-unknown-pragmas", "-o", str(d / "emu"),

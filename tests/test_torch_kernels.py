@@ -130,6 +130,7 @@ def test_cpu_tensors_never_count_launches():
     tk.rank2k_update(b, p, q)
     tk.pair_reflectors(p[:, :2], 0)
     tk.pair_update(p[:, :2], b[:, :8], b[:, 8:16], 2, q[:, :2], b[:2, :2])
+    tk.column_update(p[:, 0], b[:, :8], b[:, 8:16], 2, q[:, 0], b[0, 0])
     tk.wy_apply(b, p, t(_randn(4, 8, 8)))
     tk.symv_lower(b, p[:, 0])
     tk.symv_lower(b, p[:, :2])
@@ -141,8 +142,8 @@ def test_cpu_tensors_never_count_launches():
     assert tk.LAUNCHES == before
     assert set(before) == {"sub_matmul", "symv_lower",
                            "rank2k_update_window", "sturm_bisect",
-                           "householder_vector", "pair_reflectors",
-                           "pair_update"}
+                           "householder_vector", "column_update",
+                           "pair_reflectors", "pair_update"}
 
 
 def test_wrapper_rejects_bad_operands_and_unknown_devices():
@@ -184,17 +185,18 @@ def test_build_table_binds_every_entry_point():
     bound = dict(_build.entry_points())
     # f32 and f64 of the three matmul and matvec entry points, c64 and c128
     # of the whole-matrix subtract-product; the Sturm recurrence is f64 only;
-    # the reflector in all four types; the reflector pair and its update in
-    # f32 and f64
-    assert set(found) == set(bound) and len(found) == 17
+    # the reflector in all four types; the reflector pair and its update,
+    # and the column's update, in f32 and f64
+    assert set(found) == set(bound) and len(found) == 19
     assert "eigenexa_sturm_bisect_f64" in found
     assert {"eigenexa_sub_matmul_c64", "eigenexa_sub_matmul_c128"} <= set(
         found)
     assert {f"eigenexa_householder_vector_{s}"
             for s in ("f32", "f64", "c64", "c128")} <= set(found)
     assert {"eigenexa_pair_reflectors_f32", "eigenexa_pair_reflectors_f64",
-            "eigenexa_pair_update_f32", "eigenexa_pair_update_f64"} <= set(
-                found)
+            "eigenexa_pair_update_f32", "eigenexa_pair_update_f64",
+            "eigenexa_column_update_f32",
+            "eigenexa_column_update_f64"} <= set(found)
     for name, params in found.items():
         assert len(params) == len(bound[name]), name
         for param, ctype in zip(params, bound[name]):
@@ -663,7 +665,8 @@ def _chip_smoke():
 @pytest.mark.parametrize("phase", ["kernel", "same_bits", "symv",
                                    "rank2k_window", "sturm",
                                    "sturm_workers", "householder_vector",
-                                   "pair_reflectors", "pair_update"])
+                                   "pair_reflectors", "pair_update",
+                                   "column_update"])
 def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
     """The card script's kernel phases at small sizes on CPU tensors (the
     plain versions, nothing timed): every case builds its operands, views
@@ -694,6 +697,13 @@ def test_chip_smoke_kernel_phases_pass_on_the_cpu(phase, monkeypatch):
         rows = cs.pair_update_phase(cpu, timed=False)
         assert [(r["m"], r["c0"], r["dtype"]) for r in rows] == list(
             cs.UPDATE_CASES)
+        assert all(r["rerun_bitwise_equal"] and r["rest_kept"]
+                   and r["max_eps_sqrt_m"] == 0 and r["launches"] == 0
+                   for r in rows)
+    elif phase == "column_update":
+        rows = cs.column_update_phase(cpu, timed=False, n_solve=150)
+        assert [(r["m"], r["j"], r["dtype"]) for r in rows] == [
+            (m, j, dtype) for m, j, _, dtype in cs.COLUMN_CASES]
         assert all(r["rerun_bitwise_equal"] and r["rest_kept"]
                    and r["max_eps_sqrt_m"] == 0 and r["launches"] == 0
                    for r in rows)
@@ -776,6 +786,7 @@ def test_chip_smoke_f64_phase_passes_on_the_cpu(monkeypatch):
     cs = _chip_smoke()
     monkeypatch.setattr(cs, "expected_launches", lambda n: 0)
     monkeypatch.setattr(cs, "reflectors", lambda n: 0)
+    monkeypatch.setattr(cs, "columns", lambda n: 0)
     monkeypatch.setattr(cs, "expected_launches_windowed", lambda n: {
         name: 0 for name in tk.LAUNCHES})
     rolled, windowed = cs.f64_phase(torch.device("cpu"), 200)
