@@ -397,7 +397,8 @@ def sx_last_t0(n: int, nb_f: int = NB_F) -> int:
 def sx_window_launches(n: int, t0: int, nb_f: int = NB_F) -> int:
     """symv_lower launches (nc = 2, one a reflector pair) of one windowed
     eigen_sx solve of n at window t0: the pairs of the panels whose window
-    group starts at t0·TM (``ops/band.py`` ``_band2_windowed``)."""
+    group starts at t0·TM (``ops/band.py`` ``_band2`` in the windowed
+    frame)."""
     from eigenexa_tpu_torch.ops import householder, kernels
 
     group = householder._win_group_size(n, nb_f)

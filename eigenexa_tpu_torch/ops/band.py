@@ -9,25 +9,14 @@ matrix).  Dense symmetric A → pentadiagonal P = Qᵀ·A·Q in ONE stage, two
 columns a step, so the trailing update is a rank-2nb product as in the
 tridiagonal path.
 
-Two implementations of the panel loop, as ``ops/householder.py`` has:
-
-* **rolled**: each panel factors ``nb`` columns of the live trailing block
-  (a strided view) as nb/2 reflector pairs, reading it with a full matvec;
-  the trailing update runs in place on ``A[k+nb:, k+nb:]`` through the
-  ``sub_matmul`` kernel (``kernels.rank2k_update``); V goes to a second
-  n×n matrix;
-* **windowed**: rows keep their global indices in one n×n buffer, a window
-  ``[t0·TM:, t0·TM:]`` shrinks group by group, the pair's matvec reads the
-  window's lower triangle through ``kernels.symv_lower`` with nc = 2 (one
-  workspace a window group), the trailing update is
-  ``kernels.rank2k_update_window``, and each panel's reflectors go to its
-  own dead columns.  The pair's in-panel corrections are subtracted in
-  torch after the matvec (the fused ``panel=`` form takes one vector).
-
-Either way a pair's reflectors and T are one ``kernels.pair_reflectors``
-launch and its W columns with the stores one ``kernels.pair_update``
-launch on the card (``csrc/householder.cu``), the plain versions on the
-CPU.
+One panel loop (``_band2``) in the two frames of ``ops/householder.py``
+(``_Rolled``, ``_Windowed``), and one pair body (``_pairs``) whose matvec
+the panel's frame gives: two matvecs on the rolled view, or
+``kernels.symv_lower`` with nc = 2 on the window's lower triangle (one
+workspace a window group).  Either way a pair's reflectors and T are one
+``kernels.pair_reflectors`` launch, and its W columns, with the in-panel
+corrections and the stores, one ``kernels.pair_update`` call on the card
+(``csrc/householder.cu``), the plain versions on the CPU.
 
 Reflector storage matches ``TridiagResult``: column k of ``v`` holds the
 reflector that zeroes A[k+3:, k] (pivot row k+2, zeros in rows ≤ k+1), so
@@ -48,8 +37,7 @@ import torch
 
 from eigenexa_tpu_torch.ops import householder as hh
 from eigenexa_tpu_torch.ops import kernels
-from eigenexa_tpu_torch.ops.kernels import (WIN_TM, rank2k_update,
-                                            rank2k_update_window, symv_lower,
+from eigenexa_tpu_torch.ops.kernels import (WIN_TM, symv_lower,
                                             symv_workspace)
 from eigenexa_tpu_torch.utils.profiler import span
 
@@ -63,48 +51,62 @@ class BandResult(NamedTuple):
     tau: torch.Tensor  # (n,)   reflector scales (0 -> identity)
 
 
-def band2_panel(b: torch.Tensor, nb: int):
-    """Factor ``nb`` (even) columns of the trailing matrix ``b`` (m×m) as
-    nb/2 reflector pairs.  ``b`` is frozen at panel start; each pair sees
-    the earlier ones through A_cur = B − U·Wᵀ − W·Uᵀ.  Returns (U, W, τ);
-    after it the trailing update is b[nb:, nb:] −= U·Wᵀ + W·Uᵀ on rows nb:.
-    A pair's spans: form, reflector, matvec, w (its four steps, named as
-    the tridiagonal column's)."""
-    m = b.shape[0]
-    uw = b.new_zeros((m, 2 * nb))
+def _pairs(b, j0: int, nb: int, matvec):
+    """The pair recurrence over a panel's columns j0 … j0+nb−1 of ``b``
+    (frozen at panel start): each pair sees the earlier ones through
+    A_cur = B − U·Wᵀ − W·Uᵀ, and W is zeroed on rows < j0, which keeps the
+    windowed frame's stale rows above the panel out of every live value.
+    The frame gives ``j0`` and the matvec ``matvec(v_pair)``.  U and W are
+    the two halves of one (m, 2nb) buffer.  Returns (U, W, τ).  A pair's
+    spans: form, reflector, matvec, w (its four steps, named as the
+    tridiagonal column's)."""
+    uw = b.new_zeros((b.shape[0], 2 * nb))
     u_p, w_p = uw[:, :nb], uw[:, nb:]
     tau_p = b.new_zeros((nb,))
-    for c0 in range(0, nb, 2):
+    for jc in range(0, nb, 2):
+        c0 = j0 + jc
         with span("prd.pair"):
-            u, w = u_p[:, :c0], w_p[:, :c0]
+            u, w = u_p[:, :jc], w_p[:, :jc]
             with span("prd.pair.form"):
                 cols = b[:, c0:c0 + 2]
-                if c0:
+                if jc:
                     cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
             with span("prd.pair.reflector"):
                 v_pair, _, t = kernels.pair_reflectors(
-                    cols, c0, tau_out=tau_p[c0:c0 + 2])
-            # B·V, the PDSYMV2 analogue (reference: eigen_prd_au,
-            # src/eigen_prd_t2.F:90), as two matvecs: on the H100 cuBLAS's
-            # f32 product with two columns summed so much worse than its
-            # matvec that the f32 reduction of Frank n=8192 kept w_scaled
-            # 132 against 0.96 (tools/band_accuracy.py)
+                    cols, c0, tau_out=tau_p[jc:jc + 2])
             with span("prd.pair.matvec"):
-                b_v = torch.stack([b @ v_pair[:, 0], b @ v_pair[:, 1]],
-                                  dim=1)
+                b_v = matvec(v_pair)
             with span("prd.pair.w"):
-                kernels.pair_update(b_v, u_p, w_p, c0, v_pair, t)
+                kernels.pair_update(b_v, u_p, w_p, jc, v_pair, t,
+                                    zero_rows=j0)
     return u_p, w_p, tau_p
 
 
-def _extract_band(b, u_p, w_p, r0: int, nb: int):
-    """(d, e1, e2) of the panel columns r0 … r0+nb−1 from A_cur = B − U·Wᵀ
-    − W·Uᵀ, rows kept in b's frame.  Exact at panel end: later reflectors
-    act two rows below these entries."""
-    rows = slice(r0, r0 + nb)
+def _two_matvecs(b, v_pair):
+    """B·V of a pair, the PDSYMV2 analogue (reference: eigen_prd_au,
+    src/eigen_prd_t2.F:90), as two matvecs: on the H100 cuBLAS's f32
+    product with two columns summed so much worse than its matvec that the
+    f32 reduction of Frank n=8192 kept w_scaled 132 against 0.96
+    (tools/band_accuracy.py)."""
+    return torch.stack([b @ v_pair[:, 0], b @ v_pair[:, 1]], dim=1)
+
+
+def band2_panel(b: torch.Tensor, nb: int):
+    """Factor ``nb`` (even) columns of the trailing matrix ``b`` (m×m) as
+    nb/2 reflector pairs: the rolled frame's panel.  Returns (U, W, τ);
+    after it the trailing update is b[nb:, nb:] −= U·Wᵀ + W·Uᵀ on rows
+    nb:."""
+    return _pairs(b, 0, nb, lambda v_pair: _two_matvecs(b, v_pair))
+
+
+def _extract_band(b, u_p, w_p, nb: int):
+    """(d, e1, e2) of the first nb columns of A_cur = B − U·Wᵀ − W·Uᵀ.
+    Exact at panel end: later reflectors act two rows below these
+    entries."""
+    rows = slice(0, nb)
 
     def band(off):
-        hi = slice(r0 + off, r0 + off + nb)
+        hi = slice(off, off + nb)
         corr = (u_p[hi] * w_p[rows] + w_p[hi] * u_p[rows]).sum(dim=1)
         return b.diagonal(-off)[rows] - corr
 
@@ -120,128 +122,56 @@ def _band2_remainder(corner: torch.Tensor):
     bp = corner.new_zeros((mp, mp))
     bp[:m, :m] = corner
     u_p, w_p, tau_p = band2_panel(bp, mp)
-    d, e1, e2 = _extract_band(bp, u_p, w_p, 0, m)
+    d, e1, e2 = _extract_band(bp, u_p, w_p, m)
     return u_p[:m, :m], tau_p[:m], d, e1[:m - 1], e2[:max(m - 2, 0)]
 
 
-def _band2_rolled(work: torch.Tensor, nb: int) -> BandResult:
-    """Rolled reduction; ``work`` is the working matrix and is destroyed."""
+def _band2(work: torch.Tensor, nb: int, frame_type) -> BandResult:
+    """The panel loop in the rolled or the windowed frame
+    (``householder._Rolled``, ``_Windowed``); ``work`` is the working matrix
+    and is destroyed (the windowed frame returns it as v, as the reference
+    keeps V inside the factored matrix, src/eigen_prd_t7.F).  It runs while
+    more than nb+2 rows are live (JAX ``band.py:357``)."""
     n = work.shape[0]
     d = work.new_zeros((n,))
     e1 = work.new_zeros((n,))
     e2 = work.new_zeros((n,))
-    v_full = work.new_zeros((n, n))
+    frame = frame_type(work, nb)
     tau_full = work.new_zeros((n,))
-    k = 0
-    while n - k > nb + 2:
-        with span("prd.panel"):
-            b = work[k:, k:]
-            u_p, w_p, tau_p = band2_panel(b, nb)
-            rows = slice(k, k + nb)
-            d[rows], e1[rows], e2[rows] = _extract_band(b, u_p, w_p, 0, nb)
-            # rank-2nb trailing update in place on the live block
-            # (reference: eigen_common_2update, src/eigen_t1.F:68)
-            with span("prd.update"):
-                trail = b[nb:, nb:]
-                rank2k_update(trail, u_p[nb:], w_p[nb:], out=trail)
-            v_full[k:, rows] = u_p
-            tau_full[rows] = tau_p
-        k += nb
+    groups, k = hh._win_schedule(n, nb, frame.group, spare=2)
+    for g in sorted(groups):
+        t0 = (g * frame.group) // WIN_TM
+        if frame.windowed:
+            # the pair matvec's output and scratch, one a window group
+            ws = symv_workspace(work, t0, nc=2)
+        for j0 in groups[g]:
+            with span("prd.panel"):
+                if frame.windowed:
+                    # the pair's matvec reads only the window's lower
+                    # triangle (the PDSYMV2 analogue with nc = 2)
+                    u_p, w_p, tau_p = _pairs(
+                        work, j0, nb,
+                        lambda v_pair: symv_lower(work, v_pair, t0=t0, **ws))
+                else:
+                    u_p, w_p, tau_p = band2_panel(work[j0:, j0:], nb)
+                top = frame.top(j0)
+                rows = slice(j0, j0 + nb)
+                d[rows], e1[rows], e2[rows] = _extract_band(
+                    work[j0:, j0:], u_p[top:], w_p[top:], nb)
+                with span("prd.update"):
+                    frame.update(j0, u_p, w_p, t0)
+                frame.store(j0, u_p)
+                tau_full[rows] = tau_p
     if n > k:
         with span("prd.panel"):
             v, tau, dr, e1r, e2r = _band2_remainder(work[k:, k:])
-            v_full[k:, k:] = v
-            _put_tail(k, tau_full, d, e1, e2, tau, dr, e1r, e2r)
+            frame.store(k, v)
+            tau_full[k:] = tau
+            d[k:] = dr
+            e1[k:k + e1r.shape[0]] = e1r
+            e2[k:k + e2r.shape[0]] = e2r
     return BandResult(d=d, e1=e1[:max(n - 1, 0)], e2=e2[:max(n - 2, 0)],
-                      v=v_full, tau=tau_full)
-
-
-def _put_tail(k, tau_full, d, e1, e2, tau, dr, e1r, e2r) -> None:
-    tau_full[k:] = tau
-    d[k:] = dr
-    e1[k:k + e1r.shape[0]] = e1r
-    e2[k:k + e2r.shape[0]] = e2r
-
-
-# ---------------------------------------------------------------------------
-# windowed (no-roll) band-2 reduction
-# ---------------------------------------------------------------------------
-
-def _pair_win(b: torch.Tensor, j0: int, t0: int, nb: int, ws: dict):
-    """The pair recurrence in the fixed-buffer windowed frame (see
-    ``householder._panel_win``): the panel's columns are j0 … j0+nb−1, the
-    window ``[t0·TM:, t0·TM:]``, and the pair's matvec reads only the
-    window's lower triangle (``kernels.symv_lower`` with nc = 2, the
-    PDSYMV2 analogue, into the workspace ``ws``).  W is zeroed on rows
-    < j0, which keeps the stale rows above the panel out of every live
-    value."""
-    n = b.shape[0]
-    uw = b.new_zeros((n, 2 * nb))
-    u_p, w_p = uw[:, :nb], uw[:, nb:]
-    tau_p = b.new_zeros((nb,))
-    for jc in range(0, nb, 2):
-        c0 = j0 + jc
-        with span("prd.pair"):
-            u, w = u_p[:, :jc], w_p[:, :jc]
-            with span("prd.pair.form"):
-                cols = b[:, c0:c0 + 2]
-                if jc:
-                    cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
-            with span("prd.pair.reflector"):
-                v_pair, _, t = kernels.pair_reflectors(
-                    cols, c0, tau_out=tau_p[jc:jc + 2])
-            with span("prd.pair.matvec"):
-                b_v = symv_lower(b, v_pair, t0=t0, **ws)
-            with span("prd.pair.w"):
-                kernels.pair_update(b_v, u_p, w_p, jc, v_pair, t,
-                                    zero_rows=j0)
-    return u_p, w_p, tau_p
-
-
-def _band2_windowed(b: torch.Tensor, nb: int) -> BandResult:
-    """No-roll PRD on ONE (n, n) working buffer ``b``, which is consumed and
-    comes back as the result's v (the band-2 twin of
-    ``householder._tridiagonalize_windowed``; the reference keeps V inside
-    the factored matrix too, src/eigen_prd_t7.F).  The loop runs while more
-    than nb+2 rows are live (JAX ``band.py:357``); the window group is the
-    tridiagonal path's (``householder._win_group_size``)."""
-    n = b.shape[0]
-    d = b.new_zeros((n,))
-    e1 = b.new_zeros((n,))
-    e2 = b.new_zeros((n,))
-    tau_full = b.new_zeros((n,))
-    group = hh._win_group_size(n, nb)
-    groups: dict = {}
-    k = 0
-    while n - k > nb + 2:
-        groups.setdefault(k // group, []).append(k)
-        k += nb
-    for g in sorted(groups):
-        t0 = (g * group) // WIN_TM
-        # the pair matvec's output and scratch, one a window group
-        ws = symv_workspace(b, t0, nc=2)
-        for j0 in groups[g]:
-            with span("prd.panel"):
-                u_p, w_p, tau_p = _pair_win(b, j0, t0, nb, ws)
-                rows = slice(j0, j0 + nb)
-                d[rows], e1[rows], e2[rows] = _extract_band(b, u_p, w_p, j0,
-                                                            nb)
-                with span("prd.update"):
-                    rank2k_update_window(b, u_p, w_p, t0=t0)
-                # store V in place of the just-processed (dead) panel
-                # columns
-                b[:, rows] = u_p
-                tau_full[rows] = tau_p
-    if n > k:
-        # the live corner, which the full-square window update keeps
-        # current in both triangles
-        with span("prd.panel"):
-            v, tau, dr, e1r, e2r = _band2_remainder(b[k:, k:].clone())
-            b[:k, k:] = 0
-            b[k:, k:] = v
-            _put_tail(k, tau_full, d, e1, e2, tau, dr, e1r, e2r)
-    return BandResult(d=d, e1=e1[:max(n - 1, 0)], e2=e2[:max(n - 2, 0)],
-                      v=b, tau=tau_full)
+                      v=frame.v, tau=tau_full)
 
 
 def band2_reduce(a: torch.Tensor, nb: int = 64, impl: str = "auto",
@@ -263,9 +193,8 @@ def band2_reduce(a: torch.Tensor, nb: int = 64, impl: str = "auto",
     if impl not in ("rolled", "windowed"):
         raise ValueError(f"band2_reduce: unknown impl {impl!r}")
     work = a if donate else a.clone(memory_format=torch.contiguous_format)
-    if impl == "windowed":
-        return _band2_windowed(work, nb)
-    return _band2_rolled(work, nb)
+    return _band2(work, nb,
+                  hh._Windowed if impl == "windowed" else hh._Rolled)
 
 
 def assemble_band2(d, e1, e2) -> torch.Tensor:

@@ -1,45 +1,40 @@
 """Blocked Householder tridiagonalization and compact-WY helpers (real
 symmetric and complex Hermitian).
 
-Counterpart of ``eigenexa_tpu/ops/householder.py``.  Two implementations
-of the reference's panel loop (src/eigen_trd.F:349), both a Python loop over
-panels on ONE working matrix:
+Counterpart of ``eigenexa_tpu/ops/householder.py``.  One panel loop
+(``_tridiagonalize``, the reference's src/eigen_trd.F:349) on ONE working
+matrix, in one of two frames decided once a reduction:
 
-* **rolled**: each panel factors ``nb`` columns of the live trailing block
-  (a strided view), reading it with a full matvec; the rank-2nb trailing
-  update runs in place on the view ``A[k+nb:, k+nb:]`` through the
-  hand-written ``sub_matmul`` kernel (``ops/kernels.rank2k_update``).  The
-  reflectors go to a second n×n matrix.
-* **windowed**: rows keep their global indices in the fixed buffer.  A
-  window ``[t0·TM:, t0·TM:]`` that shrinks group by group bounds the work
-  to the live trailing block.  The panel matvec reads only the window's
-  lower triangle and applies the panel's corrections in the same call
-  (``kernels.symv_lower``, into one workspace per reduction), the
-  trailing update runs in place on the window
-  (``kernels.rank2k_update_window``), and each panel's reflectors are
-  stored in its own dead columns of the working matrix, so the reduction
-  needs one n×n buffer, as the reference does.
+* **rolled** (``_Rolled``): each panel factors ``nb`` columns of the live
+  trailing block (a strided view), reading it with a full matvec; the
+  rank-2nb trailing update runs in place on the view through the
+  hand-written ``sub_matmul`` kernel; the reflectors go to a second n×n
+  matrix.
+* **windowed** (``_Windowed``): rows keep their global indices in the fixed
+  buffer, a window that shrinks group by group bounds the work, the panel
+  matvec reads only the window's lower triangle and applies the panel's
+  corrections in the same call (``kernels.symv_lower``), and each panel's
+  reflectors go to its own dead columns, so the reduction needs one n×n
+  buffer, as the reference does.
+
+A real column is one body in either frame (``_real_columns``): its
+reflector from ``kernels.householder_vector`` (one launch of
+``csrc/householder.cu`` on the card), the frame's matvec, and w with the
+panel's stores from ``kernels.column_update`` (one call of the same
+source, three launches; two where the matvec applied the corrections).
 
 The JAX package's scan bucketing, up-left roll, per-group jit, donation
 decorators and the padding of n to a multiple of TM exist only for XLA and
 the Pallas grid and are not ported.
-
-Both take each column's reflector from ``kernels.householder_vector``
-(one launch of ``csrc/householder.cu`` on the card), and a real column's
-w with the panel's stores from ``kernels.column_update`` (one call of the
-same source, three launches; the windowed matvec having applied the
-corrections, two).
 
 The panel recurrence reads the trailing block as it stood at panel start
 and corrects each column with the in-panel U and W; the in-place update
 therefore runs strictly after the panel's last column (one stream, so call
 order is enough).
 
-One code path serves real and complex input on the rolled reduction, as in
-the JAX package: reflectors follow zlarfg (β real), so a Hermitian matrix
-reduces to a real tridiagonal T, and the conjugates sit where the formulas
-need them (for a real tensor ``conj`` is the tensor itself).  The windowed
-reduction is real only, as the JAX package's is.
+Complex input takes the rolled frame only, as in the JAX package:
+reflectors follow zlarfg (β real), so a Hermitian matrix reduces to a real
+tridiagonal T, and its column runs op by op (``_panel_body_complex``).
 """
 
 from __future__ import annotations
@@ -88,32 +83,33 @@ class TridiagResult(NamedTuple):
     tau: torch.Tensor   # (n,) reflector scales (tau[k]=0 -> identity)
 
 
-def _panel_body(j: int, b, u_p, w_p, tau_p, e_p, scratch=None):
-    """One column of the [dz]latrd-style panel recurrence, in place on the
-    panel buffers.  b is the (frozen) trailing block at panel start.  Its
-    spans: form, reflector, matvec, w (the column's four steps).
-
-    A real column writes τ and β straight into the panel and takes w from
-    ``kernels.column_update`` (one call on the card, into the panel's
-    ``scratch``), after the one trailing product B·v; a complex column
-    takes the steps op by op."""
-    if b.is_complex():
-        return _panel_body_complex(j, b, u_p, w_p, tau_p, e_p)
-    with span("trd.column.form"):
-        col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
-    with span("trd.column.reflector"):
-        v, tau, _ = householder_vector(col, j + 1, tau_out=tau_p[j],
-                                       beta_out=e_p[j])
-    # B·v (reference: eigen_trd_au, src/eigen_trd_t2.F:161); the panel's
-    # corrections follow inside column_update
-    with span("trd.column.matvec"):
-        b_v = b @ v
-    with span("trd.column.w"):
-        column_update(b_v, u_p, w_p, j, v, tau, scratch=scratch)
+def _real_columns(b, j0: int, u_p, w_p, tau_p, e_p, matvec, corrections):
+    """The [dz]latrd-style recurrence over a panel's real columns, in place
+    on the panel buffers; b is the (frozen) matrix at panel start.  The
+    panel's frame gives the row of its first column in b (``j0``), the
+    matvec ``matvec(v, jc)`` and whether ``column_update`` applies the
+    panel's corrections.  Spans: form, reflector, matvec, w."""
+    scratch = column_update_scratch(u_p)
+    for jc in range(u_p.shape[1]):
+        j = j0 + jc
+        with span("trd.column"):
+            with span("trd.column.form"):
+                col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
+            with span("trd.column.reflector"):
+                v, tau, _ = householder_vector(col, j + 1,
+                                               tau_out=tau_p[jc],
+                                               beta_out=e_p[jc])
+            with span("trd.column.matvec"):
+                q = matvec(v, jc)
+            with span("trd.column.w"):
+                column_update(q, u_p, w_p, jc, v, tau,
+                              corrections=corrections, zero_rows=j0,
+                              scratch=scratch)
+    return u_p, w_p, tau_p, e_p
 
 
 def _panel_body_complex(j: int, b, u_p, w_p, tau_p, e_p):
-    """``_panel_body`` of a complex (Hermitian) column, op by op."""
+    """One complex (Hermitian) column of the panel recurrence, op by op."""
     # the column as updated by the previous in-panel rank-2 updates:
     # A_cur[:, j] = B[:, j] − U·conj(W[j]) − W·conj(U[j])
     with span("trd.column.form"):
@@ -134,20 +130,26 @@ def _panel_body_complex(j: int, b, u_p, w_p, tau_p, e_p):
 
 
 def tridiag_panel(b: torch.Tensor, nb: int):
-    """Factor ``nb`` columns of the trailing matrix ``b`` (m×m).
+    """Factor ``nb`` columns of the trailing matrix ``b`` (m×m): the rolled
+    frame's panel.
 
     Returns (u_panel, w_panel, tau, e): after this the trailing update is
-    b[nb:, nb:] -= U[nb:]·W[nb:]ᴴ + W[nb:]·U[nb:]ᴴ.  e is real.
+    b[nb:, nb:] -= U[nb:]·W[nb:]ᴴ + W[nb:]·U[nb:]ᴴ.  e is real.  A real
+    column's matvec is the one trailing product B·v (reference:
+    eigen_trd_au, src/eigen_trd_t2.F:161), the corrections following inside
+    ``column_update``.
     """
     m = b.shape[0]
     u_p = b.new_zeros((m, nb))
     w_p = b.new_zeros((m, nb))
     tau_p = b.new_zeros((nb,))
     e_p = b.real.new_zeros((nb,))
-    scratch = None if b.is_complex() else column_update_scratch(u_p)
+    if not b.is_complex():
+        return _real_columns(b, 0, u_p, w_p, tau_p, e_p,
+                             lambda v, jc: b @ v, True)
     for j in range(nb):
         with span("trd.column"):
-            _panel_body(j, b, u_p, w_p, tau_p, e_p, scratch)
+            _panel_body_complex(j, b, u_p, w_p, tau_p, e_p)
     return u_p, w_p, tau_p, e_p
 
 
@@ -158,60 +160,17 @@ def _panel_diag(b, u_p, w_p, nb: int):
             - 2.0 * (u_p[:nb] * w_p[:nb].conj()).real.sum(dim=1))
 
 
-def _tridiagonalize_rolled(work: torch.Tensor, nb: int) -> TridiagResult:
-    """Rolled reduction; ``work`` is the working matrix and is destroyed.
-    d and e are real whatever ``work`` is; v and tau are in its dtype."""
-    n = work.shape[0]
-    d = work.real.new_zeros((n,))
-    e = work.real.new_zeros((max(n - 1, 1),))
-    v_full = work.new_zeros((n, n))
-    tau_full = work.new_zeros((n,))
-
-    k = 0
-    while n - k > nb:
-        with span("trd.panel"):
-            b = work[k:, k:]
-            u_p, w_p, tau_p, e_p = tridiag_panel(b, nb)
-            d[k:k + nb] = _panel_diag(b, u_p, w_p, nb)
-            # rank-2nb trailing update, in place on the live block
-            # (reference: eigen_common_2update, src/eigen_t1.F:68)
-            with span("trd.update"):
-                trail = b[nb:, nb:]
-                rank2k_update(trail, u_p[nb:], w_p[nb:], out=trail)
-            e[k:k + nb] = e_p
-            v_full[k:, k:k + nb] = u_p
-            tau_full[k:k + nb] = tau_p
-        k += nb
-
-    # remainder block (m <= nb): factor its columns; no trailing update
-    m = n - k
-    if m > 1:
-        with span("trd.panel"):
-            b = work[k:, k:]
-            u_p, w_p, tau_p, e_p = tridiag_panel(b, m)
-            d[k:] = _panel_diag(b, u_p, w_p, m)
-            e[k:k + m - 1] = e_p[:m - 1]
-            v_full[k:, k:] = u_p
-            tau_full[k:] = tau_p
-    elif m == 1:
-        d[k] = work[k, k].real
-    return TridiagResult(d=d, e=e[:n - 1], v=v_full, tau=tau_full)
-
-
-# ---------------------------------------------------------------------------
-# windowed (no-roll) reduction
-# ---------------------------------------------------------------------------
-
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
 def _panel_win(b: torch.Tensor, j0: int, t0: int, nb: int, ws: dict):
-    """latrd panel recurrence in the fixed-buffer windowed frame: rows keep
-    their global indices, the panel's columns are j0 … j0+nb−1, the active
-    window is ``[t0·TM:, t0·TM:]``, and the matvec reads only the window's
-    lower triangle (``kernels.symv_lower``), which also applies the panel's
-    corrections ``−U·(Wᵀv) − W·(Uᵀv)`` in its summing pass.  U and W are
+    """The windowed frame's panel: rows keep their global indices, the
+    panel's columns are j0 … j0+nb−1, the active window is
+    ``[t0·TM:, t0·TM:]``, and the matvec reads only the window's lower
+    triangle (``kernels.symv_lower``), which also applies the panel's
+    corrections ``−U·(Wᵀv) − W·(Uᵀv)`` in its summing pass (U and W are
+    zero above j0 ≥ t0·TM).  U and W are
     the two halves of one (n, 2nb) buffer; ``ws`` is the matvec's
     workspace (``kernels.symv_workspace``), made once per reduction.
 
@@ -225,35 +184,20 @@ def _panel_win(b: torch.Tensor, j0: int, t0: int, nb: int, ws: dict):
     """
     n = b.shape[0]
     uw = b.new_zeros((n, 2 * nb))
-    u_p, w_p = uw[:, :nb], uw[:, nb:]
     tau_p = b.new_zeros((nb,))
     e_p = b.new_zeros((nb,))
-    scratch = column_update_scratch(u_p)
-    for jc in range(nb):
-        j = j0 + jc
-        with span("trd.column"):
-            with span("trd.column.form"):
-                col = b[:, j] - u_p @ w_p[j] - w_p @ u_p[j]
-            with span("trd.column.reflector"):
-                v, tau, _ = householder_vector(col, j + 1,
-                                               tau_out=tau_p[jc],
-                                               beta_out=e_p[jc])
-            # q = A_cur·v: the window's matvec less the panel's first jc
-            # columns' corrections (U and W are zero above j0 >= t0·TM)
-            with span("trd.column.matvec"):
-                q = symv_lower(b, v, t0=t0, panel=uw, nb=jc, **ws)
-            with span("trd.column.w"):
-                column_update(q, u_p, w_p, jc, v, tau, corrections=False,
-                              zero_rows=j0, scratch=scratch)
-    return u_p, w_p, tau_p, e_p
+    return _real_columns(
+        b, j0, uw[:, :nb], uw[:, nb:], tau_p, e_p,
+        lambda v, jc: symv_lower(b, v, t0=t0, panel=uw, nb=jc, **ws), False)
 
 
-def _win_schedule(n: int, nb: int, group: int):
-    """Panel offsets per window group: group g covers offsets
-    [g·group, (g+1)·group); returns ({g: [offsets]}, first remainder k)."""
+def _win_schedule(n: int, nb: int, group: int, spare: int = 0):
+    """Panel offsets per window group, while more than nb + ``spare`` rows
+    are live: group g covers offsets [g·group, (g+1)·group); returns
+    ({g: [offsets]}, first remainder k)."""
     groups: dict = {}
     k = 0
-    while n - k > nb:
+    while n - k > nb + spare:
         groups.setdefault(k // group, []).append(k)
         k += nb
     return groups, k
@@ -267,60 +211,115 @@ def _win_group_size(n: int, nb: int) -> int:
     return _round_up(max(4 * nb, _round_up(n, WIN_TM) // 8), WIN_TM)
 
 
-def _tridiagonalize_windowed(b: torch.Tensor, nb: int) -> TridiagResult:
-    """No-roll reduction on ONE fixed (n, n) working buffer ``b``, which is
-    consumed and comes back as the result's v.
+class _Rolled:
+    """The rolled frame (see the module's docstring): panel k's U and W
+    count rows from k, and its trailing update and V's store take the view
+    ``work[k:, k:]``.  It reads no window: one group, t0 = 0."""
 
-    Panels advance down the diagonal in the global frame.  After a panel's
-    trailing update its (dead) columns are overwritten with the panel's
-    reflectors — the reference's scheme of factoring A in place and keeping
-    V in the zeroed-out part of the reduced matrix (src/eigen_trd.F:349;
-    src/eigen_trd_t7.F:72,208).  Later panels never read those columns as
-    data: the rank-2k delta there is exactly zero (both U and the j0-cut W
-    vanish on rows < j0), and the windowed matvec's reads of them only feed
-    rows that the recurrence cuts away.
-    """
-    n = b.shape[0]
-    d = b.new_zeros((n,))
-    e = b.new_zeros((max(n - 1, 1),))
-    tau_full = b.new_zeros((n,))
+    windowed = False
 
-    group = _win_group_size(n, nb)
-    groups, k = _win_schedule(n, nb, group)
-    # the matvec's q and scratch, sized for the first window; later, smaller
-    # windows use leading slices of them
-    ws = symv_workspace(b, panel_cols=2 * nb)
+    def __init__(self, work: torch.Tensor, nb: int):
+        self.work, self.nb = work, nb
+        self.v = work.new_zeros(work.shape)
+        self.group = work.shape[0]
+
+    def top(self, k: int) -> int:
+        """The row of U that holds ``work``'s row k."""
+        return 0
+
+    def update(self, k: int, u_p, w_p, t0: int) -> None:
+        # reference: eigen_common_2update, src/eigen_t1.F:68
+        trail = self.work[k + self.nb:, k + self.nb:]
+        rank2k_update(trail, u_p[self.nb:], w_p[self.nb:], out=trail)
+
+    def store(self, k: int, u) -> None:
+        """V's columns k … from U, whose rows are ``work``'s last."""
+        self.v[k:, k:k + u.shape[1]] = u
+
+    def identity(self, k: int) -> None:
+        """V's column k is the identity's (V starts zeroed)."""
+
+
+class _Windowed:
+    """The windowed frame: panel k's U and W keep ``work``'s rows, and its
+    V goes to its own dead columns of ``work``, which comes back as v (the
+    reference's scheme, src/eigen_trd.F:349; src/eigen_trd_t7.F:72,208).
+    Later panels never read those columns as data: the rank-2k delta there
+    is exactly zero (both U and the j0-cut W vanish on rows < j0), and the
+    windowed matvec's reads of them only feed rows that the recurrence cuts
+    away.  The remainder runs on the live corner, which the full-square
+    window update keeps current in both triangles."""
+
+    windowed = True
+
+    def __init__(self, work: torch.Tensor, nb: int):
+        self.work, self.nb, self.v = work, nb, work
+        self.group = _win_group_size(work.shape[0], nb)
+
+    def top(self, k: int) -> int:
+        return k
+
+    def update(self, k: int, u_p, w_p, t0: int) -> None:
+        rank2k_update_window(self.work, u_p, w_p, t0=t0)
+
+    def store(self, k: int, u) -> None:
+        top = self.v.shape[0] - u.shape[0]     # 0, or k for the corner
+        if top:
+            self.v[:top, k:] = 0               # the stale rows above it
+        self.v[top:, k:k + u.shape[1]] = u
+
+    def identity(self, k: int) -> None:
+        self.v[:, k] = 0
+
+
+def _tridiagonalize(work: torch.Tensor, nb: int,
+                    frame_type) -> TridiagResult:
+    """The panel loop, in the rolled or the windowed frame (``_Rolled``,
+    ``_Windowed``); ``work`` is the working matrix and is destroyed (the
+    windowed frame returns it as v).  d and e are real whatever ``work``
+    is; v and tau are in its dtype."""
+    n = work.shape[0]
+    d = work.real.new_zeros((n,))
+    e = work.real.new_zeros((max(n - 1, 1),))
+    frame = frame_type(work, nb)
+    tau_full = work.new_zeros((n,))
+    if frame.windowed:
+        # the matvec's q and scratch, sized for the first window; later,
+        # smaller windows use leading slices of them
+        ws = symv_workspace(work, panel_cols=2 * nb)
+    groups, k = _win_schedule(n, nb, frame.group)
     for g in sorted(groups):
-        t0 = (g * group) // WIN_TM
+        t0 = (g * frame.group) // WIN_TM
         for j0 in groups[g]:
             with span("trd.panel"):
-                u_p, w_p, tau_p, e_p = _panel_win(b, j0, t0, nb, ws)
+                if frame.windowed:
+                    u_p, w_p, tau_p, e_p = _panel_win(work, j0, t0, nb, ws)
+                else:
+                    u_p, w_p, tau_p, e_p = tridiag_panel(work[j0:, j0:], nb)
+                top = frame.top(j0)
                 rows = slice(j0, j0 + nb)
-                d[rows] = (b.diagonal()[rows]
-                           - 2.0 * (u_p[rows] * w_p[rows]).sum(dim=1))
+                d[rows] = _panel_diag(work[j0:, j0:], u_p[top:], w_p[top:],
+                                      nb)
                 with span("trd.update"):
-                    rank2k_update_window(b, u_p, w_p, t0=t0)
-                # store V in place of the just-processed (dead) panel columns
-                b[:, rows] = u_p
-                tau_full[rows] = tau_p
+                    frame.update(j0, u_p, w_p, t0)
                 e[rows] = e_p
+                frame.store(j0, u_p)
+                tau_full[rows] = tau_p
 
-    # remainder panel (m <= nb) on the live corner, which the full-square
-    # window update keeps current in both triangles
+    # remainder block (m <= nb): factor its columns; no trailing update
     m = n - k
     if m > 1:
         with span("trd.panel"):
-            b_rem = b[k:, k:]
-            u_p, w_p, tau_p, e_p = tridiag_panel(b_rem, m)
-            d[k:] = _panel_diag(b_rem, u_p, w_p, m)
+            b = work[k:, k:]
+            u_p, w_p, tau_p, e_p = tridiag_panel(b, m)
+            d[k:] = _panel_diag(b, u_p, w_p, m)
             e[k:k + m - 1] = e_p[:m - 1]
-            b[:k, k:] = 0
-            b[k:, k:] = u_p
+            frame.store(k, u_p)
             tau_full[k:] = tau_p
     elif m == 1:
-        d[k] = b[k, k]
-        b[:, k] = 0
-    return TridiagResult(d=d, e=e[:n - 1], v=b, tau=tau_full)
+        d[k] = work[k, k].real
+        frame.identity(k)
+    return TridiagResult(d=d, e=e[:n - 1], v=frame.v, tau=tau_full)
 
 
 def _rolled_peak_bytes(n: int, itemsize: int = 4, band: int = 1) -> float:
@@ -393,9 +392,8 @@ def tridiagonalize(a: torch.Tensor, nb: int = 64, impl: str = "auto",
             "tridiagonalize: the windowed reduction is real only (a "
             "Hermitian reduction is rolled, as in the JAX package)")
     work = a if donate else a.clone(memory_format=torch.contiguous_format)
-    if impl == "windowed":
-        return _tridiagonalize_windowed(work, nb)
-    return _tridiagonalize_rolled(work, nb)
+    return _tridiagonalize(work, nb,
+                           _Windowed if impl == "windowed" else _Rolled)
 
 
 # ---------------------------------------------------------------------------

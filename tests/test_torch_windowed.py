@@ -328,8 +328,8 @@ def test_eigen_s_windowed_matches_jax(monkeypatch):
     ctx = ext.eigen_init("cpu", config=ext.SolverConfig(panel_forward=64,
                                                         panel_backward=64))
     calls = []
-    real = th._tridiagonalize_windowed
-    monkeypatch.setattr(th, "_tridiagonalize_windowed",
+    real = th._Windowed
+    monkeypatch.setattr(th, "_Windowed",
                         lambda *args: calls.append(1) or real(*args))
     w, z, _ = ext.eigen_s(a, ctx=ctx)
     ext.eigen_free(ctx)
@@ -354,7 +354,7 @@ def test_eigen_s_auto_is_rolled(monkeypatch):
     def boom(*args):
         raise AssertionError("windowed path taken")
 
-    monkeypatch.setattr(th, "_tridiagonalize_windowed", boom)
+    monkeypatch.setattr(th, "_Windowed", boom)
     assert th.TRD_IMPL == "auto"
     a, _ = mat_set(96, 0, dtype=torch.float64)
     ctx = ext.eigen_init("cpu", config=ext.SolverConfig(panel_forward=32,
@@ -371,7 +371,7 @@ def test_auto_on_a_cpu_tensor_is_rolled(monkeypatch):
     def boom(*args):
         raise AssertionError("windowed path taken")
 
-    monkeypatch.setattr(th, "_tridiagonalize_windowed", boom)
+    monkeypatch.setattr(th, "_Windowed", boom)
     assert th.TRD_IMPL == "auto"
     a = t(sym(96, 30))
     r = th.tridiagonalize(a, nb=32)

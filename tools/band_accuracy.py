@@ -30,23 +30,9 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-def _product_panel(b, nb):
-    """``band.band2_panel`` with B·V as one two-column product."""
-    from eigenexa_tpu_torch.ops import kernels
-
-    m = b.shape[0]
-    uw = b.new_zeros((m, 2 * nb))
-    u_p, w_p = uw[:, :nb], uw[:, nb:]
-    tau_p = b.new_zeros((nb,))
-    for c0 in range(0, nb, 2):
-        u, w = u_p[:, :c0], w_p[:, :c0]
-        cols = b[:, c0:c0 + 2]
-        if c0:
-            cols = cols - u @ w[c0:c0 + 2].T - w @ u[c0:c0 + 2].T
-        v_pair, _, t = kernels.pair_reflectors(cols, c0,
-                                               tau_out=tau_p[c0:c0 + 2])
-        kernels.pair_update(b @ v_pair, u_p, w_p, c0, v_pair, t)
-    return u_p, w_p, tau_p
+def _one_product(b, v_pair):
+    """B·V of a reflector pair as one two-column product."""
+    return b @ v_pair
 
 
 def main() -> int:
@@ -77,12 +63,12 @@ def main() -> int:
     out = {"n": n, "dtype": str(dtype).split(".")[1]}
     rolled = band.band2_reduce(a, impl="rolled")
     out["band2_rolled"] = w_scaled(rolled.d, rolled.e1, rolled.e2)
-    shipped = band.band2_panel
-    band.band2_panel = _product_panel
+    shipped = band._two_matvecs
+    band._two_matvecs = _one_product
     try:
         red = band.band2_reduce(a, impl="rolled")
     finally:
-        band.band2_panel = shipped
+        band._two_matvecs = shipped
     out["band2_rolled_product"] = w_scaled(red.d, red.e1, red.e2)
     red = band.band2_reduce(a, impl="windowed")
     out["band2_windowed"] = w_scaled(red.d, red.e1, red.e2)
